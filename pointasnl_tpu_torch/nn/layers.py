@@ -1,0 +1,130 @@
+"""Base layers: the PyTorch counterparts of ``pointasnl_tpu/nn/layers.py``.
+
+- Every convolution of the reference is pointwise, so ``PointConv`` is a dense
+  layer over the last axis (+ BatchNorm + activation), like the JAX package.
+- ``BatchNorm`` is the reference's, not ``torch.nn.BatchNorm1d``: eps 1e-3,
+  the EMA momentum is passed at call time with
+  ``moving = moving * m + batch * (1 - m)``, and training uses the biased batch
+  variance ``mean(x^2) - mean(x)^2``.
+- ``PointConv`` and ``FullyConnected`` drop the dense bias when BN follows,
+  as the JAX package does (layers.py:133-138).
+- Parameters and buffers carry the flax names (``conv``/``dense``, ``bn``,
+  ``kernel`` -> ``weight`` stored transposed as (out, in), ``scale``, ``bias``,
+  ``mean``, ``var``), so a flax variable tree converts mechanically
+  (``utils.convert``).
+- Modules take their input width explicitly and initialise from an explicit
+  ``torch.Generator``: Xavier-uniform kernels, zero biases, BN 1/0/0/1.
+- Train or eval mode is the module's ``training`` flag (``.train()`` /
+  ``.eval()``), where flax passes ``training=`` to each call.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Activation = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+class Dense(nn.Module):
+    """x @ weight.T (+ bias) with a Xavier-uniform weight, like flax's Dense."""
+
+    def __init__(self, in_features: int, features: int, *, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        limit = math.sqrt(6.0 / (in_features + features))
+        weight = torch.empty(features, in_features).uniform_(-limit, limit, generator=generator)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over the last axis with a call-time EMA momentum."""
+
+    def __init__(self, features: int, *, epsilon: float = 1e-3):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, momentum=0.9) -> torch.Tensor:
+        if self.training:
+            reduce_dims = tuple(range(x.dim() - 1))
+            xf = x.float()
+            mean = xf.mean(dim=reduce_dims)
+            var = xf.square().mean(dim=reduce_dims) - mean.square()
+            with torch.no_grad():
+                m = torch.as_tensor(momentum, dtype=torch.float32, device=x.device)
+                self.mean.copy_(self.mean * m + mean * (1.0 - m))
+                self.var.copy_(self.var * m + var * (1.0 - m))
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.scale + self.bias).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Dropout with the reference's keep_prob convention (tf_util.py:594)."""
+
+    def __init__(self, keep_prob: float = 0.5):
+        super().__init__()
+        self.keep_prob = keep_prob
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, p=1.0 - self.keep_prob, training=self.training)
+
+
+class PointConv(nn.Module):
+    """Pointwise (1x1) convolution: Dense [+ BN] [+ activation].
+
+    The dense bias is dropped when ``bn`` is set (BN's mean subtraction
+    cancels it), as in the JAX package.
+    """
+
+    def __init__(self, in_features: int, features: int, *, bn: bool = True,
+                 activation: Activation = F.relu,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activation = activation
+        self.conv = Dense(in_features, features, use_bias=not bn, generator=generator)
+        self.bn = BatchNorm(features) if bn else None
+
+    def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x, momentum=bn_momentum)
+        if self.activation is not None:
+            x = self.activation(x)
+        return x
+
+
+class FullyConnected(nn.Module):
+    """Dense [+ BN] [+ activation], tf_util.fully_connected (:327).
+
+    Like PointConv, the bias is dropped when BN follows.
+    """
+
+    def __init__(self, in_features: int, features: int, *, bn: bool = False,
+                 activation: Activation = F.relu,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activation = activation
+        self.dense = Dense(in_features, features, use_bias=not bn, generator=generator)
+        self.bn = BatchNorm(features) if bn else None
+
+    def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
+        x = self.dense(x)
+        if self.bn is not None:
+            x = self.bn(x, momentum=bn_momentum)
+        if self.activation is not None:
+            x = self.activation(x)
+        return x

@@ -1,0 +1,90 @@
+"""PointNet++ set abstraction, the PyTorch counterpart of
+``pointasnl_tpu/nn/pointnet.py``.
+
+Ported so far: the group-all path that the classifier's two heads run
+(utils/pointnet_util.py:59-154), with every pooling mode. The sampled
+(ball / kNN) grouping, the multi-scale module and feature propagation wait
+for the segmentation models.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from pointasnl_tpu_torch.nn.layers import PointConv
+
+
+def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor],
+                         use_xyz: bool = True):
+    """Group the whole cloud into one region centred at the origin
+    (utils/pointnet_util.py:59-84)."""
+    B, N, _ = xyz.shape
+    new_xyz = torch.zeros((B, 1, 3), dtype=xyz.dtype, device=xyz.device)
+    idx = torch.arange(N, dtype=torch.int32, device=xyz.device).expand(B, 1, N)
+    grouped_xyz = xyz.reshape(B, 1, N, 3)
+    if points is not None:
+        new_points = torch.cat([xyz, points], dim=-1) if use_xyz else points
+        new_points = new_points[:, None, :, :]
+    else:
+        new_points = grouped_xyz
+    return new_xyz, new_points, idx, grouped_xyz
+
+
+class PointNetSAModule(nn.Module):
+    """PointNet++ set abstraction over the whole cloud (group_all), with the
+    pooling modes max, avg, weighted_avg and max_and_avg.
+
+    ``in_channels`` is C of the (B, N, C) input features, 0 for none.
+    """
+
+    def __init__(self, in_channels: int, mlp: Sequence[int], *,
+                 mlp2: Optional[Sequence[int]] = None, bn: bool = True,
+                 pooling: str = "max", use_xyz: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if pooling not in ("max", "avg", "weighted_avg", "max_and_avg"):
+            raise ValueError(f"unknown pooling: {pooling!r}")
+        self.pooling = pooling
+        self.use_xyz = use_xyz
+        self.convs = []
+        width = in_channels + 3 if (use_xyz or not in_channels) else in_channels
+        for i, c in enumerate(mlp):
+            conv = PointConv(width, c, bn=bn, generator=generator)
+            self.add_module(f"conv{i}", conv)
+            self.convs.append(conv)
+            width = c
+        if pooling == "max_and_avg":
+            width *= 2
+        self.post_convs = []
+        for i, c in enumerate(mlp2 or ()):
+            conv = PointConv(width, c, bn=bn, generator=generator)
+            self.add_module(f"conv_post_{i}", conv)
+            self.post_convs.append(conv)
+            width = c
+
+    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
+                bn_momentum=0.9) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        new_xyz, new_points, idx, grouped_xyz = sample_and_group_all(xyz, points, self.use_xyz)
+        for conv in self.convs:
+            new_points = conv(new_points, bn_momentum=bn_momentum)
+
+        if self.pooling == "max":
+            new_points = new_points.amax(dim=2, keepdim=True)
+        elif self.pooling == "avg":
+            new_points = new_points.mean(dim=2, keepdim=True)
+        elif self.pooling == "weighted_avg":
+            dists = torch.linalg.vector_norm(grouped_xyz, dim=-1, keepdim=True)
+            exp_dists = torch.exp(-dists * 5.0)
+            weights = exp_dists / exp_dists.sum(dim=2, keepdim=True)
+            new_points = (new_points * weights).sum(dim=2, keepdim=True)
+        else:  # max_and_avg
+            mx = new_points.amax(dim=2, keepdim=True)
+            av = new_points.mean(dim=2, keepdim=True)
+            new_points = torch.cat([av, mx], dim=-1)
+
+        for conv in self.post_convs:
+            new_points = conv(new_points, bn_momentum=bn_momentum)
+        return new_xyz, new_points.squeeze(2), idx

@@ -1,0 +1,25 @@
+"""Geometry op layer: plain PyTorch versions + hand-written CUDA kernels.
+
+The public API routes by device (``ops.dispatch``): CPU tensors take the plain
+versions of ``ops.geometry``, CUDA tensors the kernels of ``ops.cuda``.
+"""
+
+from pointasnl_tpu_torch.ops.dispatch import (
+    farthest_point_sample,
+    gather_point,
+    group_point,
+    grouping,
+    knn_point,
+    pairwise_sqdist,
+    sampling,
+)
+
+__all__ = [
+    "farthest_point_sample",
+    "gather_point",
+    "group_point",
+    "grouping",
+    "knn_point",
+    "pairwise_sqdist",
+    "sampling",
+]

@@ -1,0 +1,107 @@
+"""Build the CUDA kernels of ``pointasnl_tpu_torch/csrc`` and load them.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at the first kernel call, never at import, and lands in
+``build/pointasnl_tpu_torch/<hash>/`` at the root of the checkout, keyed on a
+hash of the sources and the flags, so a changed source builds anew and an
+unchanged one loads the library already built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "pointasnl_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the build in this process, None if loaded
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build the kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pasnl_fps.argtypes = [p, p, i, i, i, p]
+    lib.pasnl_fps.restype = i
+    lib.pasnl_knn.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.pasnl_knn.restype = i
+    for name in ("pasnl_fps_max_n", "pasnl_knn_max_n", "pasnl_knn_max_k"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.pasnl_error_string.argtypes = [i]
+    lib.pasnl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source tree has none."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        out_dir = BUILD_ROOT / _digest(sources)
+        so = out_dir / "libpointasnl_kernels.so"
+        if not so.exists():
+            nvcc = _nvcc()
+            out_dir.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            # Build under a private name, then rename: a concurrent process
+            # sees either no library or a whole one.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            try:
+                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                        f"{proc.stdout}{proc.stderr}"
+                    )
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            build_seconds = time.perf_counter() - t0
+        _lib = _declare(ctypes.CDLL(str(so)))
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().pasnl_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")

@@ -62,3 +62,8 @@ def rng():
 # once-in-a-run abort it was meant to fix correlates with concurrent
 # heavyweight processes starving the 8-virtual-device collectives
 # (CLAUDE.md: serialize the suite with other heavy runs).
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips when none is present")

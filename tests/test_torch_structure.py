@@ -1,0 +1,89 @@
+"""Structure of the port: it imports no JAX, and the flax -> state_dict
+converter is one-to-one."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import pointasnl_tpu_torch
+from pointasnl_tpu_torch.nn import PointConv
+from pointasnl_tpu_torch.utils import flax_to_state_dict
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pointasnl_tpu")
+PKG = Path(pointasnl_tpu_torch.__file__).parent
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+
+
+def test_port_sources_found():
+    names = {p.relative_to(PKG.parent).as_posix() for p in _port_sources()}
+    assert {"pointasnl_tpu_torch/ops/dispatch.py", "pointasnl_tpu_torch/models/cls.py",
+            "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.relative_to(PKG.parent).as_posix())
+def test_port_module_imports_no_jax(path):
+    """A static scan: the test process itself has JAX loaded (conftest), so
+    sys.modules cannot tell what the port imports."""
+    roots = set(_imported_roots(ast.parse(path.read_text(), filename=str(path))))
+    assert not roots & set(FORBIDDEN), f"{path} imports {sorted(roots & set(FORBIDDEN))}"
+
+
+def test_import_scan_catches_forbidden_imports():
+    src = "import jax.numpy as jnp\nfrom flax import linen\nimport importlib\nimportlib.import_module('optax')\n"
+    assert {"jax", "flax", "optax"} <= set(_imported_roots(ast.parse(src)))
+
+
+def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
+    """The build covers every csrc/*.cu, lands in the checkout's gitignored
+    build/ directory, and fails loudly, with nothing built, where there is no
+    CUDA toolkit."""
+    import torch.utils.cpp_extension as cpp_extension
+
+    from pointasnl_tpu_torch.ops.cuda import _build
+
+    sources = _build._sources()
+    assert [p.name for p in sources] == ["fps.cu", "knn.cu"]
+    assert _build.BUILD_ROOT == PKG.parent / "build" / "pointasnl_tpu_torch"
+    assert _build._digest(sources) == _build._digest(sources)
+    assert all(a in _build.NVCC_FLAGS for a in ("arch=compute_90a,code=sm_90a", "-shared"))
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(_build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.library()
+
+
+def test_converter_maps_pointconv_leaves_one_to_one():
+    rng = np.random.RandomState(0)
+    variables = {
+        "params": {"conv": {"kernel": rng.randn(5, 7)},
+                   "bn": {"scale": rng.rand(7), "bias": rng.randn(7)}},
+        "batch_stats": {"bn": {"mean": rng.randn(7), "var": rng.rand(7)}},
+    }
+    sd = flax_to_state_dict(variables)
+    assert sorted(sd) == sorted(PointConv(5, 7).state_dict())
+    np.testing.assert_array_equal(sd["conv.weight"].numpy(), variables["params"]["conv"]["kernel"].T.astype(np.float32))
+    assert all(t.dtype == torch.float32 for t in sd.values())
+
+
+def test_converter_refuses_unknown_collections():
+    with pytest.raises(ValueError, match="unexpected variable collections"):
+        flax_to_state_dict({"params": {}, "cache": {}})
