@@ -8,11 +8,14 @@ held against. It mirrors that package's layout and names:
   routed by the tensor's device (``ops.dispatch``).
 - ``pointasnl_tpu_torch.nn``     — the PointASNL / PointNet++ modules.
 - ``pointasnl_tpu_torch.models`` — the models and their name registry.
+- ``pointasnl_tpu_torch.train``  — schedules, optimizer, train/eval steps.
 - ``pointasnl_tpu_torch.utils``  — the flax -> ``state_dict`` converter.
 - ``pointasnl_tpu_torch.serve``  — the inference forward.
 
-The port runs in float32. So far it covers the eval forward of the
-classifier (``pointasnl_cls``).
+The port runs in float32, on the card unless a model is built with
+``device="cpu"``. So far it covers the eval forward of the classifier
+(``pointasnl_cls``) and the train step and eval forward of the residual
+segmentation model (``pointasnl_sem_seg_res``).
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from pointasnl_tpu_torch.models.registry import register_model
+from pointasnl_tpu_torch.models.registry import place, register_model
 from pointasnl_tpu_torch.nn.layers import Dropout, FullyConnected
 from pointasnl_tpu_torch.nn.pointasnl import PointASNLSetAbstraction
 from pointasnl_tpu_torch.nn.pointnet import PointNetSAModule
@@ -26,12 +26,13 @@ from pointasnl_tpu_torch.nn.pointnet import PointNetSAModule
 @register_model("pointasnl_cls")
 class PointASNLCls(nn.Module):
     """Initialised from `generator` (Xavier-uniform kernels, zero biases, BN
-    1/0/0/1) on the CPU, then moved to `device`."""
+    1/0/0/1) on the CPU, then moved to `device`: the card unless the caller
+    passes ``device="cpu"``."""
 
     def __init__(self, num_class: int = 40, use_normal: bool = False,
                  adaptive_sample: bool = False, *,
                  generator: Optional[torch.Generator] = None,
-                 device: Optional[torch.device] = None):
+                 device: torch.device = torch.device("cuda")):
         super().__init__()
         self.use_normal = use_normal
         g = generator
@@ -47,8 +48,7 @@ class PointASNLCls(nn.Module):
         self.fc2 = FullyConnected(512, 256, bn=True, generator=g)
         self.dp2 = Dropout(keep_prob=0.4)
         self.fc3 = FullyConnected(256, num_class, bn=False, activation=None, generator=g)
-        if device is not None:
-            self.to(device)
+        place(self, device)
 
     def forward(self, point_cloud: torch.Tensor, bn_momentum=0.9
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

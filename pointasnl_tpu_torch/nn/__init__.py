@@ -8,7 +8,7 @@ from pointasnl_tpu_torch.nn.pointasnl import (
     SampleWeights,
     WeightNetHidden,
 )
-from pointasnl_tpu_torch.nn.pointnet import PointNetSAModule, sample_and_group_all
+from pointasnl_tpu_torch.nn.pointnet import PointNetFPModule, PointNetSAModule, sample_and_group_all
 
 __all__ = [
     "AdaptiveSampling",
@@ -18,6 +18,7 @@ __all__ = [
     "FullyConnected",
     "PointASNLSetAbstraction",
     "PointConv",
+    "PointNetFPModule",
     "PointNetSAModule",
     "PointNonLocalCell",
     "SampleWeights",

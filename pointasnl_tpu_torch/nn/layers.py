@@ -59,7 +59,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, momentum=0.9) -> torch.Tensor:
         if self.training:
             reduce_dims = tuple(range(x.dim() - 1))
-            xf = x.float()
+            # At least float32 moments, as in the JAX package: a float64
+            # input keeps float64.
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(dim=reduce_dims)
             var = xf.square().mean(dim=reduce_dims) - mean.square()
             with torch.no_grad():

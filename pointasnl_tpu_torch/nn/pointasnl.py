@@ -11,15 +11,15 @@ module names and the same reference quirks:
   - the ``bmkc,bmkw->bmcw`` product is flattened channel-major before
     ``after_conv``.
 
-Ported so far: the dense ``mode="dot"`` non-local cell, and the SA cell on its
-down-sampling kNN path (N != npoint), which is what the classifier runs. The
-concat mode, the blockwise and flash attention, the ball-query grouping, the
-geometry hints and the decoding layer wait for the segmentation models.
+Ported so far: the dense ``mode="dot"`` non-local cell, and the SA cell on
+both its paths (down-sampling, N != npoint, and same-resolution, N ==
+npoint), with kNN or ball grouping and the ``fps_idx`` / ``knn_idx`` hints.
+The concat mode, the blockwise and flash attention, the ``support_*``
+decoupling of whole-scene inference and the decoding layer wait.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -28,6 +28,12 @@ from torch import nn
 
 from pointasnl_tpu_torch import ops
 from pointasnl_tpu_torch.nn.layers import PointConv
+
+
+def _attention_scale(channels: int) -> float:
+    """sqrt(channels) rounded to float32, the JAX package's constant
+    (``jnp.sqrt(jnp.float32(C))``), whatever the dtype of the scores."""
+    return torch.tensor(channels, dtype=torch.float32).sqrt().item()
 
 
 class WeightNetHidden(nn.Module):
@@ -59,6 +65,7 @@ class SampleWeights(nn.Module):
         super().__init__()
         self.scaled = scaled
         self.bottleneck = max(32, in_channels // 2)
+        self.scale = _attention_scale(self.bottleneck)
         feats = 3 + in_channels
         self.conv_kv_ds = PointConv(feats, self.bottleneck * 2, bn=bn, activation=None,
                                     generator=generator)
@@ -84,7 +91,7 @@ class SampleWeights(nn.Module):
 
         attn = torch.einsum("bmkc,bmlc->bmkl", q, k)  # (B, M, K, K)
         if self.scaled:
-            attn = attn / math.sqrt(self.bottleneck)
+            attn = attn / self.scale
         attn = torch.softmax(attn, dim=-1)
         out = torch.einsum("bmkl,bmlc->bmkc", attn, v)
         for conv in self.mlp2:
@@ -130,6 +137,7 @@ class PointNonLocalCell(nn.Module):
         super().__init__()
         self.bottleneck = bottleneck
         self.scaled = scaled
+        self.scale = _attention_scale(bottleneck)
         self.conv_kv = PointConv(in_channels, bottleneck * 2, bn=bn, activation=None,
                                  generator=generator)
         self.conv_query = PointConv(query_channels, bottleneck, bn=bn, activation=None,
@@ -145,32 +153,47 @@ class PointNonLocalCell(nn.Module):
         v = kv[..., self.bottleneck:]
         attn = torch.einsum("bmc,bnc->bmn", q, k)
         if self.scaled:
-            attn = attn / math.sqrt(self.bottleneck)
+            attn = attn / self.scale
         attn = torch.softmax(attn, dim=-1)
         out = torch.einsum("bmn,bnc->bmc", attn, v)
         return self.conv_back_project(out, bn_momentum=bn_momentum)
 
 
 class PointASNLSetAbstraction(nn.Module):
-    """The PointASNL SA cell: FPS -> kNN group -> AS -> (NL ‖ local conv) -> fuse
+    """The PointASNL SA cell: FPS -> group -> AS -> (NL ‖ local conv) -> fuse
     (utils/pointasnl_util.py:221-292). ``in_channels`` is C of the (B, N, C)
-    input features."""
+    input features.
 
-    def __init__(self, in_channels: int, npoint: int, nsample: int, mlp: Sequence[int], *,
-                 as_neighbor: int = 8, NL: bool = True, bn: bool = True,
-                 generator: Optional[torch.Generator] = None):
+    ``npoint`` may be left None at construction and given at call time (the
+    segmentation model derives it from N). ``downsample=False`` builds the
+    same-resolution cell (N == npoint): no FPS and no adaptive sampling, and
+    the non-local queries are the input features. Flax creates the
+    parameters at the first call, where N is known; the port creates them at
+    construction, so it has to be told which of the two cells it is.
+    """
+
+    def __init__(self, in_channels: int, npoint: Optional[int], nsample: int,
+                 mlp: Sequence[int], *, as_neighbor: int = 8, NL: bool = True,
+                 bn: bool = True, use_knn: bool = True, radius: Optional[float] = None,
+                 downsample: bool = True, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.npoint = npoint
         self.nsample = nsample
         self.NL = NL
+        self.use_knn = use_knn
+        self.radius = radius if radius is not None else 0.2
+        self.downsample = downsample
         group_channels = 3 + in_channels  # grouping prepends the raw xyz
         point_channels = 3 + group_channels  # the cell prepends normalised xyz
         out = mlp[-1]
         g = generator
-        self.adaptive_sampling = AdaptiveSampling(group_channels, as_neighbor, bn=bn, generator=g)
+        if downsample:
+            self.adaptive_sampling = AdaptiveSampling(group_channels, as_neighbor, bn=bn,
+                                                      generator=g)
         if NL:
+            query_channels = group_channels if downsample else in_channels
             self.add_module("nonlocal", PointNonLocalCell(
-                in_channels, group_channels, max(32, in_channels // 2), out, bn=bn, generator=g))
+                in_channels, query_channels, max(32, in_channels // 2), out, bn=bn, generator=g))
         self.skip = PointConv(point_channels, out, bn=bn, generator=g)
         self.local_convs = []
         width = point_channels
@@ -183,15 +206,32 @@ class PointASNLSetAbstraction(nn.Module):
         self.after_conv = PointConv(width * 32, out, bn=bn, generator=g)
         self.aggregation = PointConv(out, out, bn=bn, generator=g)
 
-    def forward(self, xyz: torch.Tensor, feature: torch.Tensor,
-                bn_momentum=0.9) -> Tuple[torch.Tensor, torch.Tensor]:
-        if feature.shape[1] == self.npoint:
-            raise NotImplementedError(
-                "the SA cell without down-sampling (N == npoint) is not ported yet")
-        new_xyz = ops.sampling(self.npoint, xyz)
-        grouped_xyz, new_point, _ = ops.grouping(feature, self.nsample, xyz, new_xyz)
-        new_xyz, new_feature = self.adaptive_sampling(grouped_xyz, new_point,
-                                                      bn_momentum=bn_momentum)
+    def forward(self, xyz: torch.Tensor, feature: torch.Tensor, bn_momentum=0.9, *,
+                npoint: Optional[int] = None, fps_idx: Optional[torch.Tensor] = None,
+                knn_idx: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`fps_idx` / `knn_idx` are exact precomputed-geometry hints: FPS
+        indices of xyz and the neighbour rows of the sampled queries, which
+        the segmentation model gathers from the stem's self-kNN graph. The
+        result is the unhinted one: a kNN row depends only on its query, and
+        FPS only on xyz."""
+        N = feature.shape[1]
+        npoint = npoint if npoint is not None else self.npoint
+        if (npoint in (None, N)) == self.downsample:
+            raise ValueError(f"SA cell built with downsample={self.downsample} called with "
+                             f"N={N}, npoint={npoint}")
+
+        if not self.downsample:
+            new_xyz, new_feature = xyz, feature
+        elif fps_idx is not None:
+            new_xyz = ops.gather_point(xyz, fps_idx)
+        else:
+            new_xyz = ops.sampling(npoint, xyz)
+        grouped_xyz, new_point, _ = ops.grouping(feature, self.nsample, xyz, new_xyz,
+                                                 use_knn=self.use_knn, radius=self.radius,
+                                                 idx=knn_idx)
+        if self.downsample:
+            new_xyz, new_feature = self.adaptive_sampling(grouped_xyz, new_point,
+                                                          bn_momentum=bn_momentum)
 
         grouped_xyz = grouped_xyz - new_xyz[:, :, None, :]  # translation normalisation
         new_point = torch.cat([grouped_xyz, new_point], dim=-1)

@@ -2,9 +2,9 @@
 ``pointasnl_tpu/nn/pointnet.py``.
 
 Ported so far: the group-all path that the classifier's two heads run
-(utils/pointnet_util.py:59-154), with every pooling mode. The sampled
-(ball / kNN) grouping, the multi-scale module and feature propagation wait
-for the segmentation models.
+(utils/pointnet_util.py:59-154), with every pooling mode, and feature
+propagation (``PointNetFPModule``), the decoder of ``pointasnl_sem_seg_res``.
+The sampled (ball / kNN) grouping waits for a model that runs it.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from pointasnl_tpu_torch import ops
 from pointasnl_tpu_torch.nn.layers import PointConv
 
 
@@ -88,3 +89,34 @@ class PointNetSAModule(nn.Module):
         for conv in self.post_convs:
             new_points = conv(new_points, bn_momentum=bn_momentum)
         return new_xyz, new_points.squeeze(2), idx
+
+
+class PointNetFPModule(nn.Module):
+    """PointNet++ feature propagation (utils/pointnet_util.py:199-229):
+    inverse-distance interpolation of the sparse features points2 at the
+    3 nearest of xyz2 to each point of xyz1, concatenated with the dense
+    features points1, then 1x1 convs ``conv_{i}``.
+
+    ``in_channels`` is C2 + C1, the interpolated width plus that of points1
+    (C2 alone when points1 is None).
+    """
+
+    def __init__(self, in_channels: int, mlp: Sequence[int], *, bn: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.convs = []
+        width = in_channels
+        for i, c in enumerate(mlp):
+            conv = PointConv(width, c, bn=bn, generator=generator)
+            self.add_module(f"conv_{i}", conv)
+            self.convs.append(conv)
+            width = c
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, points1: Optional[torch.Tensor],
+                points2: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
+        new_points = ops.three_interpolate_idw(xyz1, xyz2, points2)
+        if points1 is not None:
+            new_points = torch.cat([new_points, points1], dim=-1)
+        for conv in self.convs:
+            new_points = conv(new_points, bn_momentum=bn_momentum)
+        return new_points

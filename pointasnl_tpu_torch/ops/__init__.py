@@ -11,7 +11,12 @@ from pointasnl_tpu_torch.ops.dispatch import (
     grouping,
     knn_point,
     pairwise_sqdist,
+    query_ball_point,
+    repulsion_loss,
     sampling,
+    three_interpolate,
+    three_interpolate_idw,
+    three_nn,
 )
 
 __all__ = [
@@ -21,5 +26,10 @@ __all__ = [
     "grouping",
     "knn_point",
     "pairwise_sqdist",
+    "query_ball_point",
+    "repulsion_loss",
     "sampling",
+    "three_interpolate",
+    "three_interpolate_idw",
+    "three_nn",
 ]

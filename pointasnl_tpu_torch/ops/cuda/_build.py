@@ -1,8 +1,9 @@
 """Build the CUDA kernels of ``pointasnl_tpu_torch/csrc`` and load them.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``. The build
-happens at the first kernel call, never at import, and lands in
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The build happens at the
+first kernel call, never at import, and lands in
 ``build/pointasnl_tpu_torch/<hash>/`` at the root of the checkout, keyed on a
 hash of the sources and the flags, so a changed source builds anew and an
 unchanged one loads the library already built.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -22,10 +24,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "pointasnl_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+LINK_FLAGS = [*ARCH, "-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -45,7 +46,7 @@ def _nvcc() -> str:
 
 
 def _digest(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -53,12 +54,15 @@ def _digest(sources) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pasnl_fps.argtypes = [p, p, i, i, i, p]
     lib.pasnl_fps.restype = i
     lib.pasnl_knn.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.pasnl_knn.restype = i
-    for name in ("pasnl_fps_max_n", "pasnl_knn_max_n", "pasnl_knn_max_k"):
+    lib.pasnl_ball_query.argtypes = [p, p, p, p, i, i, i, i, f, p]
+    lib.pasnl_ball_query.restype = i
+    for name in ("pasnl_fps_max_n", "pasnl_knn_max_n", "pasnl_knn_max_k",
+                 "pasnl_ball_query_max_n", "pasnl_ball_query_max_nsample"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.pasnl_error_string.argtypes = [i]
@@ -79,22 +83,29 @@ def library() -> ctypes.CDLL:
             nvcc = _nvcc()
             out_dir.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
-            # Build under a private name, then rename: a concurrent process
-            # sees either no library or a whole one.
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
+            # Build in a private directory, then rename the library into
+            # place: a concurrent process sees either no library or a whole one.
+            work = tempfile.mkdtemp(dir=out_dir)
             try:
-                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+                objs = [os.path.join(work, src.stem + ".o") for src in sources]
+                procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True)
+                         for src, obj in zip(sources, objs)]
+                logs = [proc.communicate()[0] for proc in procs]
+                for proc, log in zip(procs, logs):
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                           f"{' '.join(proc.args)}\n{log}")
+                tmp = os.path.join(work, so.name)
+                cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                        f"{proc.stdout}{proc.stderr}"
-                    )
+                    raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                       f"{proc.stdout}{proc.stderr}")
                 os.replace(tmp, so)
             finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+                shutil.rmtree(work, ignore_errors=True)
             build_seconds = time.perf_counter() - t0
         _lib = _declare(ctypes.CDLL(str(so)))
         return _lib

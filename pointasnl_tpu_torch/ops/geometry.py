@@ -15,10 +15,14 @@ Tie rules, as in the JAX package:
     distance; ``torch.argmax`` returns the first maximum, like ``jnp.argmax``.
   - kNN breaks equal distances toward the lower support index. ``torch.topk``
     does not promise that order, so the plain kNN sorts stably.
+  - The ball query keeps the first in-ball points in index order; the
+    repulsion loss's top-5 sorts stably, so ties go to the lower slot, as
+    ``lax.top_k`` does.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -107,6 +111,102 @@ def knn_point(k: int, support: torch.Tensor, query: torch.Tensor) -> Tuple[torch
     return dist, idx
 
 
+def _radius_sq(radius: float) -> float:
+    """r^2 rounded to float32 from the double ``radius * radius``, the value
+    both JAX paths compare float32 distances against."""
+    return struct.unpack("f", struct.pack("f", radius * radius))[0]
+
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-radius neighbourhood query with the reference's padding rule.
+
+    A support point is in the ball iff its squared distance is < r^2
+    (strict). The first `nsample` in-ball points in index order are kept;
+    empty slots repeat the first in-ball index; an empty ball gives index 0.
+
+    Args:
+      radius: ball radius.
+      nsample: slots per query.
+      xyz:     (B, N, 3) support points.
+      new_xyz: (B, M, 3) query points.
+
+    Returns:
+      (idx, cnt): (B, M, nsample) int32 indices and (B, M) int32 in-ball
+      counts, capped at nsample. No gradient.
+    """
+    N = xyz.shape[1]
+    d2 = pairwise_sqdist(new_xyz.detach(), xyz.detach())
+    mask = d2 < _radius_sq(radius)
+    arange = torch.arange(N, device=xyz.device)
+    cand = torch.where(mask, arange, N)  # out of the ball -> sentinel N
+    # The k smallest candidates are the first in-ball points in index order.
+    k = min(nsample, N)
+    sel = torch.sort(cand, dim=-1, stable=True).values[..., :k]
+    if k < nsample:  # more slots than support points: the rest is padding
+        sel = torch.cat([sel, sel.new_full((*sel.shape[:-1], nsample - k), N)], dim=-1)
+    first = sel[..., :1]
+    pad = torch.where(first < N, first, 0)
+    idx = torch.where(sel < N, sel, pad).to(torch.int32)
+    cnt = mask.sum(dim=-1).clamp_max(nsample).to(torch.int32)
+    return idx, cnt
+
+
+def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor, *,
+             knn=knn_point) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3 nearest neighbours of xyz1 (B, M1, 3) in xyz2 (B, M2, 3), with
+    SQUARED distances: (dist2, idx), each (B, M1, 3), dist2 ascending. No
+    gradient flows through dist2, as in the reference.
+
+    With M2 < 3 the missing slots hold distance 1e38 and index 0, so their
+    inverse-distance weight is ~0. `knn` lets ops.dispatch substitute the
+    kNN kernel.
+    """
+    N = xyz2.shape[1]
+    if N < 3:
+        d2, idx = knn(N, xyz2, xyz1)
+        pad = 3 - N
+        d2 = torch.cat([d2, d2.new_full((*d2.shape[:-1], pad), 1e38)], dim=-1)
+        idx = torch.cat([idx, idx.new_zeros((*idx.shape[:-1], pad))], dim=-1)
+    else:
+        d2, idx = knn(3, xyz2, xyz1)
+    return d2.detach(), idx
+
+
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """Weighted sum of 3 neighbours: points (B, M2, C), idx and weight
+    (B, M1, 3) -> (B, M1, C)."""
+    return torch.sum(group_point(points, idx) * weight[..., None], dim=2)
+
+
+def three_interpolate_idw(xyz1: torch.Tensor, xyz2: torch.Tensor, points2: torch.Tensor,
+                          *, three_nn_fn=three_nn) -> torch.Tensor:
+    """three_nn + inverse-distance weights + three_interpolate: the weights
+    are 1 / d^2 with d^2 clamped at >= 1e-10, normalised over the 3
+    neighbours. `three_nn_fn` lets ops.dispatch substitute the kernel search."""
+    dist2, idx = three_nn_fn(xyz1, xyz2)
+    inv = 1.0 / dist2.clamp_min(1e-10)
+    weight = inv / inv.sum(dim=2, keepdim=True)
+    return three_interpolate(points2, idx, weight)
+
+
+def repulsion_loss(pred: torch.Tensor, nsample: int = 20, radius: float = 0.07,
+                   h: float = 0.03, *, ball_query=query_ball_point) -> torch.Tensor:
+    """Uniformity (repulsion) penalty on sampled positions pred (B, M, 3)
+    (utils/pointasnl_util.py:361-378): ball-query `nsample` neighbours in
+    `radius`, keep the 5 nearest, drop the nearest (the point itself), and
+    return mean(radius - d * exp(-d^2 / h^2)). `ball_query` lets
+    ops.dispatch substitute the kernel."""
+    idx, _ = ball_query(radius, nsample, pred, pred)
+    grouped = group_point(pred, idx) - pred[:, :, None, :]
+    dist2 = torch.sum(grouped * grouped, dim=-1)  # (B, M, nsample)
+    dist2 = torch.sort(dist2, dim=-1, stable=True).values[..., 1:5]
+    dist2 = dist2.clamp_min(1e-12)
+    weight = torch.exp(-dist2 / (h * h))
+    return torch.mean(radius - torch.sqrt(dist2) * weight)
+
+
 def sampling(npoint: int, pts: torch.Tensor, feature: Optional[torch.Tensor] = None,
              fps=farthest_point_sample):
     """FPS + gather, the reference's `sampling` (utils/pointasnl_util.py:33-49).
@@ -126,17 +226,27 @@ def grouping(
     q_xyz: torch.Tensor,
     *,
     use_xyz: bool = True,
+    use_knn: bool = True,
+    radius: float = 0.2,
+    idx: Optional[torch.Tensor] = None,
     knn=knn_point,
+    ball_query=query_ball_point,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """kNN neighbourhood grouping, the reference's `grouping`
-    (utils/pointasnl_util.py:51-76).
+    """Neighbourhood grouping, the reference's `grouping`
+    (utils/pointasnl_util.py:51-76): the `k` nearest neighbours, or with
+    `use_knn=False` the first `k` points within `radius`.
 
     Returns (grouped_xyz, grouped_feature, idx) with shapes (B, M, K, 3),
     (B, M, K, [3+]C) and (B, M, K); with `use_xyz` the RAW grouped xyz is
-    prepended to the features. `knn` lets ops.dispatch substitute the kNN
-    kernel. The ball-query branch is not ported yet.
+    prepended to the features. `idx` skips the search with precomputed
+    neighbour rows (exact: a row depends only on its query). `knn` and
+    `ball_query` let ops.dispatch substitute the kernels.
     """
-    _, idx = knn(k, src_xyz, q_xyz)
+    if idx is None:
+        if use_knn:
+            _, idx = knn(k, src_xyz, q_xyz)
+        else:
+            idx, _ = ball_query(radius, k, src_xyz, q_xyz)
     grouped_xyz = group_point(src_xyz, idx)
     grouped_feature = group_point(feature, idx)
     if use_xyz:

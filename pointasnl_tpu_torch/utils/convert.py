@@ -4,7 +4,8 @@ The port's modules carry the flax module names, so the conversion is
 mechanical: a leaf's flax path joined by ``.`` is its ``state_dict`` key, with
 a Dense ``kernel`` (in, out) stored transposed as ``weight`` (out, in).
 ``params`` hold the parameters, ``batch_stats`` the BN buffers ``mean`` and
-``var``.
+``var``. A tree of gradients (or of an optimizer's moments) converts the same
+way, as ``{"params": grads}``.
 """
 
 from __future__ import annotations
@@ -24,16 +25,17 @@ def _leaves(tree: Mapping[str, Any], prefix: tuple = ()):
             yield path, value
 
 
-def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(variables: Mapping[str, Any],
+                       dtype=np.float32) -> Dict[str, torch.Tensor]:
     """Convert ``{"params": ..., "batch_stats": ...}`` nested dicts of arrays
-    (numpy, or anything ``np.asarray`` takes) to a ``state_dict``."""
+    (numpy, or anything ``np.asarray`` takes) to a ``state_dict`` of `dtype`."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unexpected variable collections: {sorted(unknown)}")
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(collection, {})):
-            array = np.array(value, dtype=np.float32)
+            array = np.array(value, dtype=dtype)
             if path[-1] == "kernel":
                 if array.ndim != 2:
                     raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense kernel")

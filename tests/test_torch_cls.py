@@ -41,7 +41,7 @@ def reference():
 @pytest.fixture(scope="module")
 def port(reference):
     variables = reference[0]
-    model = PointASNLCls(40, adaptive_sample=True)
+    model = PointASNLCls(40, adaptive_sample=True, device="cpu")
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     return model
 
@@ -50,13 +50,14 @@ def test_converter_maps_every_flax_leaf_to_one_entry(reference):
     variables = reference[0]
     leaves = jax.tree_util.tree_leaves_with_path(variables)
     sd = flax_to_state_dict(variables)
-    expected = PointASNLCls(40, adaptive_sample=True).state_dict()
+    expected = PointASNLCls(40, adaptive_sample=True, device="cpu").state_dict()
     assert len(sd) == len(leaves) == len(expected)
     assert sorted(sd) == sorted(expected)
     for key, value in sd.items():
         assert value.shape == expected[key].shape, key
     n_params = sum(int(np.size(v)) for v in jax.tree_util.tree_leaves(variables["params"]))
-    assert n_params == sum(p.numel() for p in PointASNLCls(40, adaptive_sample=True).parameters())
+    assert n_params == sum(p.numel() for p in PointASNLCls(40, adaptive_sample=True,
+                                                          device="cpu").parameters())
 
 
 def test_cls_eval_forward_matches_jax(reference, port):
@@ -97,9 +98,12 @@ def test_inference_fn_is_eval_mode_without_grad(port):
 
 
 def test_generator_init_is_deterministic():
-    a = PointASNLCls(40, adaptive_sample=True, generator=torch.Generator().manual_seed(3))
-    b = PointASNLCls(40, adaptive_sample=True, generator=torch.Generator().manual_seed(3))
-    c = PointASNLCls(40, adaptive_sample=True, generator=torch.Generator().manual_seed(4))
+    a = PointASNLCls(40, adaptive_sample=True, generator=torch.Generator().manual_seed(3),
+                     device="cpu")
+    b = PointASNLCls(40, adaptive_sample=True, generator=torch.Generator().manual_seed(3),
+                     device="cpu")
+    c = PointASNLCls(40, adaptive_sample=True, generator=torch.Generator().manual_seed(4),
+                     device="cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["fc1.dense.weight"], sc["fc1.dense.weight"])
@@ -109,6 +113,7 @@ def test_registry_and_normals_variant():
     assert get_model_class("pointasnl_cls") is PointASNLCls
     with pytest.raises(KeyError, match="unknown model"):
         get_model_class("nope")
-    model = PointASNLCls(10, use_normal=True, generator=torch.Generator().manual_seed(0))
+    model = PointASNLCls(10, use_normal=True, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
     logits = make_inference_fn(model)(torch.randn(1, 600, 6, generator=torch.Generator().manual_seed(2)))
     assert logits.shape == (1, 10) and bool(torch.isfinite(logits).all())

@@ -5,7 +5,8 @@ so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
-Indices must be exactly equal; kNN squared distances within 1e-6 relative.
+Indices must be exactly equal (ball-query counts too); kNN squared distances
+within 1e-6 relative.
 """
 
 import numpy as np
@@ -13,11 +14,19 @@ import pytest
 import torch
 
 from pointasnl_tpu_torch import ops
-from pointasnl_tpu_torch.models import PointASNLCls
+from pointasnl_tpu_torch.models import PointASNLCls, PointASNLSemSegRes
 from pointasnl_tpu_torch.ops import geometry as tg
+from pointasnl_tpu_torch.ops.cuda import ball_query as cuda_ball
 from pointasnl_tpu_torch.ops.cuda import fps as cuda_fps
 from pointasnl_tpu_torch.ops.cuda import knn as cuda_knn
 from pointasnl_tpu_torch.serve import make_inference_fn
+from pointasnl_tpu_torch.train import (
+    TrainState,
+    bn_momentum_schedule,
+    make_optimizer,
+    make_train_step,
+    staircase_lr_schedule,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -43,6 +52,7 @@ def _cloud(seed, B, N, dup=0):
     (2, 512, 200, 256),  # duplicate points
     (2, 300, 1, 0),      # npoint == 1
     (1, 10240, 1280, 0),  # the largest N the kernel takes
+    (4, 10240, 1280, 0),  # the seg step's stem: 10240 -> 1280 at B4
 ])
 def test_fps_kernel_matches_plain(dev, B, N, npoint, dup):
     x = _cloud(N + npoint, B, N, dup).to(dev)
@@ -61,6 +71,8 @@ def test_fps_kernel_matches_plain(dev, B, N, npoint, dup):
     (2, 10, 7, 16, "disjoint"),      # k > N
     (1, 10240, 2560, 32, "subset"),
     (1, 12288, 64, 128, "disjoint"),  # the largest N and k the kernel takes
+    (1, 10240, 10240, 32, "subset"),  # the seg step's stem self-kNN, one cloud
+    (4, 1280, 10240, 3, "disjoint"),  # three_nn of the seg decoder's last level
 ])
 def test_knn_kernel_matches_plain(dev, B, N, M, k, case):
     support = _cloud(N + M, B, N, dup=N // 2 if case == "duplicates" else 0)
@@ -75,6 +87,57 @@ def test_knn_kernel_matches_plain(dev, B, N, M, k, case):
         assert torch.equal(got_i[..., 0].long(), torch.arange(0, N, N // M, device=dev)[:M].expand(B, M))
 
 
+def ball_case(case):
+    """(xyz, new_xyz, radius, nsample) of a named ball-query case, as numpy."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    if case == "l1_xyz":  # the repulsion loss: 1280 points in a 0.5 m cube
+        x = (rng.rand(4, 1280, 3) * 0.5).astype(np.float32)
+        return x, x, 0.07, 20
+    if case == "cluster":  # more than nsample hits: the cap applies
+        x = (rng.rand(2, 500, 3) * 0.5).astype(np.float32)
+        x[:, 100:200] = 0.25 + 0.01 * rng.rand(2, 100, 3)
+        return x, x[:, 90:210].copy(), 0.07, 20
+    if case == "empty":  # queries far from every point
+        x = rng.rand(2, 300, 3).astype(np.float32)
+        return x, np.full((2, 8, 3), 100.0, np.float32), 0.1, 8
+    if case == "exactly_r":  # d^2 == r^2 stays out of the ball
+        x = np.zeros((1, 40, 3), np.float32)
+        x[0, :, 0] = np.linspace(0.2, 1.0, 40)
+        x[0, 12] = (0.5, 0.0, 0.0)
+        return x, np.zeros((1, 1, 3), np.float32), 0.5, 16
+    if case == "ragged":  # N not a multiple of 32
+        x = (rng.rand(2, 1000, 3) * 0.5).astype(np.float32)
+        return x, x[:, ::7].copy(), 0.08, 32
+    if case == "duplicates":
+        x = (rng.rand(2, 600, 3) * 0.5).astype(np.float32)
+        x[:, 300:] = x[:, :300]
+        return x, x[:, 250:350].copy(), 0.06, 24
+    if case == "n10240":
+        x = (rng.rand(1, 10240, 3) * 0.5).astype(np.float32)
+        return x, x[:, ::8].copy(), 0.07, 20
+    raise ValueError(case)
+
+
+BALL_CASES = ["l1_xyz", "cluster", "empty", "exactly_r", "ragged", "duplicates", "n10240"]
+
+
+@pytest.mark.parametrize("case", BALL_CASES)
+def test_ball_query_kernel_matches_plain(dev, case):
+    xyz, new_xyz, radius, nsample = ball_case(case)
+    xyz, new_xyz = torch.from_numpy(xyz).to(dev), torch.from_numpy(new_xyz).to(dev)
+    got_i, got_c = cuda_ball.query_ball_point(radius, nsample, xyz, new_xyz)
+    want_i, want_c = tg.query_ball_point(radius, nsample, xyz, new_xyz)
+    torch.cuda.synchronize()
+    assert got_i.dtype == torch.int32 and got_i.shape == (*new_xyz.shape[:2], nsample)
+    assert torch.equal(got_i, want_i) and torch.equal(got_c, want_c)
+    if case == "cluster":
+        assert int(got_c.max()) == nsample
+    if case == "empty":
+        assert not bool(got_i.any()) and not bool(got_c.any())
+    if case == "exactly_r":
+        assert 12 not in got_i.tolist()[0][0]
+
+
 def test_kernels_refuse_sizes_beyond_their_limits(dev):
     with pytest.raises(ValueError, match="N <= 10240"):
         cuda_fps.farthest_point_sample(8, torch.zeros(1, 10241, 3, device=dev))
@@ -82,14 +145,19 @@ def test_kernels_refuse_sizes_beyond_their_limits(dev):
         cuda_knn.knn_point(8, torch.zeros(1, 12289, 3, device=dev), torch.zeros(1, 4, 3, device=dev))
     with pytest.raises(ValueError, match="k <= 128"):
         cuda_knn.knn_point(129, torch.zeros(1, 200, 3, device=dev), torch.zeros(1, 4, 3, device=dev))
+    with pytest.raises(ValueError, match="nsample <= 128"):
+        cuda_ball.query_ball_point(0.1, 129, torch.zeros(1, 200, 3, device=dev),
+                                   torch.zeros(1, 4, 3, device=dev))
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernels(dev):
     x = _cloud(1, 2, 256).to(dev)
-    fps0, knn0 = cuda_fps.launches, cuda_knn.launches
+    fps0, knn0, ball0 = cuda_fps.launches, cuda_knn.launches, cuda_ball.launches
     ops.farthest_point_sample(16, x)
     ops.knn_point(8, x, x[:, :16])
-    assert (cuda_fps.launches - fps0, cuda_knn.launches - knn0) == (1, 1)
+    ops.query_ball_point(0.2, 8, x, x[:, :16])
+    assert (cuda_fps.launches - fps0, cuda_knn.launches - knn0,
+            cuda_ball.launches - ball0) == (1, 1, 1)
 
 
 def test_cls_forward_launches_each_kernel_twice_a_request(dev):
@@ -102,3 +170,31 @@ def test_cls_forward_launches_each_kernel_twice_a_request(dev):
     torch.cuda.synchronize()
     assert logits.shape == (2, 40) and bool(torch.isfinite(logits).all())
     assert (cuda_fps.launches - fps0, cuda_knn.launches - knn0) == (2, 2)
+
+
+def _counts():
+    return cuda_fps.launches, cuda_knn.launches, cuda_ball.launches
+
+
+def test_seg_train_step_and_forward_launch_counts(dev):
+    """A seg train step launches FPS 4, kNN 7 + 4 (three_nn) and the ball
+    query 1 time; the serve forward the same minus the ball query."""
+    model = PointASNLSemSegRes(21, generator=torch.Generator().manual_seed(0), device=dev)
+    state = TrainState(model, make_optimizer("adam", staircase_lr_schedule(1e-3, 2, 200000, 0.7),
+                                             model.parameters()))
+    step = make_train_step(bn_schedule=bn_momentum_schedule(2, 200000), task="seg",
+                           uniform_weight=0.01)
+    rng = np.random.RandomState(0)
+    batch = {"points": torch.from_numpy((rng.rand(2, 2048, 3) * 0.5).astype(np.float32)).to(dev),
+             "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
+             "smpw": torch.ones(2, 2048, device=dev)}
+    before = _counts()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (4, 11, 1)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    before = _counts()
+    logits = make_inference_fn(model)(batch["points"])
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (4, 11, 0)
+    assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())

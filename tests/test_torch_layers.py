@@ -41,22 +41,38 @@ def randomized(variables, seed):
     return jax.tree_util.tree_map_with_path(redraw, jax.tree_util.tree_map(np.asarray, variables))
 
 
-def run_both(jmodule, tmodule, args, *, training, momentum=0.9, seed=0):
+def run_both(jmodule, tmodule, args, *, training, momentum=0.9, seed=0, kwargs=None,
+             x64=False):
     """Apply the flax module and the port module to the same numpy inputs
     with the same (randomized) weights.
 
     Returns (jax output, port output, jax updated batch_stats, port state_dict).
-    An argument of None is passed as None to both.
+    An argument of None is passed as None to both; `kwargs` (numpy arrays)
+    go to both by name. With `x64` both run in float64 (floating inputs and
+    weights), under ``jax.enable_x64``.
     """
     mkw = {"momentum": momentum} if isinstance(tmodule, tl.BatchNorm) else {"bn_momentum": momentum}
+    kwargs = kwargs or {}
     jargs = [None if a is None else jnp.asarray(a) for a in args]
-    init = jmodule.init({"params": jax.random.PRNGKey(0)}, *jargs, training=False, **mkw)
+    jkw = {k: jnp.asarray(v) for k, v in kwargs.items()}
+    init = jmodule.init({"params": jax.random.PRNGKey(0)}, *jargs, training=False, **jkw, **mkw)
     variables = randomized(init, seed)
     tmodule.load_state_dict(flax_to_state_dict(variables), strict=True)
     tmodule.train(training)
-    jout, updates = jmodule.apply(variables, *jargs, training=training, mutable=["batch_stats"], **mkw)
+
+    def wide(a):
+        return a.astype(np.float64) if x64 and np.issubdtype(a.dtype, np.floating) else a
+
+    with jax.enable_x64(x64):
+        jvars = jax.tree_util.tree_map(lambda a: jnp.asarray(wide(a)), variables)
+        jargs = [None if a is None else jnp.asarray(wide(a)) for a in args]
+        jout, updates = jmodule.apply(jvars, *jargs, training=training, mutable=["batch_stats"],
+                                      **jkw, **mkw)
+    if x64:
+        tmodule.double()
     with torch.no_grad():
-        tout = tmodule(*[None if a is None else torch.from_numpy(a) for a in args], **mkw)
+        tout = tmodule(*[None if a is None else torch.from_numpy(wide(a)) for a in args],
+                       **{k: torch.from_numpy(v) for k, v in kwargs.items()}, **mkw)
     return jout, tout, updates.get("batch_stats", {}), tmodule.state_dict()
 
 

@@ -3,7 +3,10 @@ narrow widths, with converted (randomized) flax weights.
 
 Tolerance: |port - jax| <= 1e-5 * max(|jax|, 1), as in test_torch_layers.
 Neighbour indices inside the SA cell come from the plain geometry ops, which
-test_torch_geometry holds to the JAX oracle exactly.
+test_torch_geometry holds to the JAX oracle exactly. Train mode runs in
+float64 on both sides: BN then divides by batch deviations of a few dozen
+points, which amplifies float32 rounding of two frameworks' reductions past
+this tolerance; in float64 the same tolerance holds with room to spare.
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ from pointasnl_tpu.nn import pointasnl as jp
 from pointasnl_tpu.nn import pointnet as jpn
 from pointasnl_tpu_torch.nn import pointasnl as tp
 from pointasnl_tpu_torch.nn import pointnet as tpn
+from pointasnl_tpu_torch.ops import geometry as tg
 
 torch.set_num_threads(1)
 
@@ -93,8 +97,88 @@ def test_group_all_pointnet_sa_matches_jax(pooling, mlp2, C, use_xyz):
         assert_close(t, j)
 
 
-def test_sa_cell_without_downsampling_is_not_ported():
-    cell = tp.PointASNLSetAbstraction(3, 16, 4, (8, 8))
+def _assert_bn_stats(state, stats, prefix=""):
+    """Every running statistic of the port equals the JAX update."""
+    for name, value in stats.items():
+        if isinstance(value, dict):
+            _assert_bn_stats(state, value, f"{prefix}{name}.")
+        else:
+            assert_close(state[f"{prefix}{name}"], value)
+
+
+@pytest.mark.parametrize("NL,training", [(False, False), (False, True), (True, True)])
+def test_set_abstraction_same_resolution_matches_jax(NL, training):
+    """N == npoint: no FPS, no adaptive sampling, non-local queries are the
+    input features; in train mode the BN statistics move as in JAX."""
+    rng = np.random.RandomState(5)
+    xyz = rng.rand(2, 48, 3).astype(np.float32)
+    feature = rng.randn(2, 48, 6).astype(np.float32)
+    jout, tout, stats, state = run_both(
+        jp.PointASNLSetAbstraction(npoint=48, nsample=8, mlp=(16, 16, 32), as_neighbor=0, NL=NL),
+        tp.PointASNLSetAbstraction(6, None, 8, (16, 16, 32), as_neighbor=0, NL=NL,
+                                   downsample=False),
+        [xyz, feature], training=training, momentum=0.5, x64=training)
+    for t, j in zip(tout, jout):
+        assert_close(t, j)
+    np.testing.assert_array_equal(tout[0].numpy(), xyz.astype(tout[0].numpy().dtype))
+    if training:
+        _assert_bn_stats(state, stats)
+
+
+def test_set_abstraction_hints_match_jax():
+    """fps_idx / knn_idx hints: the same cell output as JAX given the same
+    hints, and as the port's own searches."""
+    rng = np.random.RandomState(6)
+    xyz = rng.randn(2, 64, 3).astype(np.float32)
+    feature = rng.randn(2, 64, 4).astype(np.float32)
+    fps_idx = tg.farthest_point_sample(16, torch.from_numpy(xyz))
+    _, knn_idx = tg.knn_point(8, torch.from_numpy(xyz), tg.gather_point(torch.from_numpy(xyz), fps_idx))
+    hints = {"fps_idx": fps_idx.numpy(), "knn_idx": knn_idx.numpy()}
+    cell = tp.PointASNLSetAbstraction(4, 16, 8, (16, 32), as_neighbor=4)
+    jout, tout, _, _ = run_both(
+        jp.PointASNLSetAbstraction(npoint=16, nsample=8, mlp=(16, 32), as_neighbor=4), cell,
+        [xyz, feature], training=False, kwargs=hints)
+    for t, j in zip(tout, jout):
+        assert_close(t, j)
+    with torch.no_grad():
+        unhinted = cell(torch.from_numpy(xyz), torch.from_numpy(feature))
+    for t, u in zip(tout, unhinted):
+        torch.testing.assert_close(t, u, rtol=0, atol=0)
+
+
+def test_set_abstraction_ball_grouping_matches_jax():
+    rng = np.random.RandomState(7)
+    xyz = (rng.rand(2, 64, 3) * 0.5).astype(np.float32)
+    jout, tout, _, _ = run_both(
+        jp.PointASNLSetAbstraction(npoint=16, nsample=8, mlp=(16, 32), as_neighbor=4,
+                                   use_knn=False, radius=0.2),
+        tp.PointASNLSetAbstraction(3, 16, 8, (16, 32), as_neighbor=4, use_knn=False, radius=0.2),
+        [xyz, xyz.copy()], training=False)
+    for t, j in zip(tout, jout):
+        assert_close(t, j)
+
+
+def test_set_abstraction_refuses_a_call_of_the_other_kind():
+    cell = tp.PointASNLSetAbstraction(3, None, 4, (8, 8), downsample=False)
     x = torch.randn(1, 16, 3)
-    with pytest.raises(NotImplementedError, match="N == npoint"):
-        cell(x, x)
+    with pytest.raises(ValueError, match="downsample=False"):
+        cell(x, x, npoint=8)
+    with pytest.raises(ValueError, match="downsample=True"):
+        tp.PointASNLSetAbstraction(3, None, 4, (8, 8))(x, x)
+
+
+@pytest.mark.parametrize("training,with_points1", [(True, True), (False, False)])
+def test_fp_module_matches_jax(training, with_points1):
+    rng = np.random.RandomState(8)
+    xyz1, xyz2 = rng.randn(2, 40, 3).astype(np.float32), rng.randn(2, 10, 3).astype(np.float32)
+    points1 = rng.randn(2, 40, 5).astype(np.float32) if with_points1 else None
+    points2 = rng.randn(2, 10, 7).astype(np.float32)
+    jout, tout, stats, state = run_both(
+        jpn.PointNetFPModule(mlp=(16, 8)),
+        tpn.PointNetFPModule(7 + (5 if with_points1 else 0), (16, 8)),
+        [xyz1, xyz2, points1, points2], training=training, momentum=0.5, x64=training)
+    assert_close(tout, jout)
+    assert sorted(state) == sorted(f"conv_{i}.{k}" for i in range(2)
+                                   for k in ("conv.weight", "bn.scale", "bn.bias", "bn.mean", "bn.var"))
+    if training:
+        _assert_bn_stats(state, stats)

@@ -1,5 +1,5 @@
-"""Structure of the port: it imports no JAX, and the flax -> state_dict
-converter is one-to-one."""
+"""Structure of the port: it imports no JAX, its models run on the card unless
+asked for the CPU, and the flax -> state_dict converter is one-to-one."""
 
 import ast
 from pathlib import Path
@@ -61,14 +61,29 @@ def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
     from pointasnl_tpu_torch.ops.cuda import _build
 
     sources = _build._sources()
-    assert [p.name for p in sources] == ["fps.cu", "knn.cu"]
+    assert [p.name for p in sources] == ["ball_query.cu", "fps.cu", "knn.cu"]
     assert _build.BUILD_ROOT == PKG.parent / "build" / "pointasnl_tpu_torch"
     assert _build._digest(sources) == _build._digest(sources)
-    assert all(a in _build.NVCC_FLAGS for a in ("arch=compute_90a,code=sm_90a", "-shared"))
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.LINK_FLAGS and "-shared" in _build.LINK_FLAGS
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
     monkeypatch.setattr(_build, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.library()
+
+
+@pytest.mark.parametrize("name", ["pointasnl_cls", "pointasnl_sem_seg_res"])
+def test_models_default_to_the_card(name, monkeypatch):
+    """Without a card, a model built with no device raises; it never stays on
+    the CPU. device="cpu" is the explicit request."""
+    from pointasnl_tpu_torch.models import get_model_class
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cls = get_model_class(name)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cls()
+    model = cls(device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def test_converter_maps_pointconv_leaves_one_to_one():
