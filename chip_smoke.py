@@ -30,11 +30,25 @@ Phases (any failure raises, and the script exits non-zero with no result):
   7. Card against CPU, one seg train step at B2 x 2048 from the same weights
      (dropout off): layer-1 FPS and kNN indices exact; loss terms, gradients
      per parameter and BN statistics within the float32 yardstick (below).
-  8. Timing with CUDA events after warm-up (medians): each kernel and its
-     plain version at both slices' shapes, in turns; the B8 x 1024 cls
-     forward; the B4 x 10240 train step (p50, p90, points/s) and serve
-     forward; one torch.profiler window over 3 train steps (device-busy
-     share, device time by kernel, the three kernels' share of the step).
+  8. Slice 3, whole-scene serving: scene-scale FPS (the cluster design)
+     and the spatially-pruned kNN against their plain versions on the card,
+     indices exact (kNN d2 within 1e-6 relative), at the whole-scene path's
+     shapes on a 131072-point surface scene and at edge cases; then
+     ``PointASNLSemSegRes(21, nl_kv_block_size=4096)`` answers 3 requests
+     of B1 x 131072 surface scenes (the first is bench.py's input) through
+     ``serve.make_inference_fn``: a request must launch FPS 4, the spatial
+     kNN 3, the resident kNN 8 and no ball query, and return finite
+     (1, 131072, 21) logits; peak memory is printed.
+  9. Card against CPU, the whole-scene model's forward at B1 x 24576 on two
+     scenes (the stem's self-kNN then takes the spatial kernel): level-1 FPS
+     and kNN indices exact; logits within SCENE_LOGIT_RTOL (below).
+ 10. Timing with CUDA events after warm-up (medians): each kernel and its
+     plain version at all slices' shapes, in turns, and the share of pairs
+     the spatial kernel tests; the B8 x 1024 cls forward; the B4 x 10240
+     train step (p50, p90, points/s) and serve forward; one torch.profiler
+     window over 3 train steps (device-busy share, device time by kernel,
+     the kernels' share of the step); the whole-scene request (p50, p90,
+     points/s) and a profiler window over 2 requests.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
@@ -70,7 +84,11 @@ KERNELS = {  # "symbol": what the kernel's name holds in a profiler trace
     "ball_query": {"source": "pointasnl_tpu_torch/csrc/ball_query.cu",
                    "replaces": "pointasnl_tpu/ops/pallas/ball_query.py:32",
                    "symbol": "ball_query_kernel"},
+    "knn_spatial": {"source": "pointasnl_tpu_torch/csrc/knn_spatial.cu",
+                    "replaces": "pointasnl_tpu/ops/pallas/knn_spatial.py:122",
+                    "symbol": "knn_spatial_kernel"},
 }
+FPS_CLUSTER_SYMBOL = "fps_cluster_kernel"  # the scene-scale design of csrc/fps.cu
 # (B, N, npoint) and (B, N support, M query, k) of slice 1's two SA layers.
 FPS_SHAPES = [(8, 1024, 512), (8, 512, 128)]
 KNN_SHAPES = [(8, 1024, 512, 32), (8, 512, 128, 64)]
@@ -93,6 +111,25 @@ CMP_B, CMP_N, CMP_SIDE = 2, 2048, 0.4
 # mode normalises BN over as few as 16 values at level 4, which makes either
 # float32 step ~1e-3 off float64 in places; a fault is off by O(1).
 YARDSTICK, FLOOR_RTOL = 10.0, 1e-4
+
+# Slice 3: whole-scene serving (bench.py:bench_whole_scene): one surface
+# scene of 131072 points, extent 6.0, K/V blocks of 4096. Its searches are
+# SEG_KNN's; the three whose support exceeds 12288 points take the spatial
+# kernel.
+SCENE_N, SCENE_EXTENT, SCENE_BLOCK, SCENE_REQUESTS = 131072, 6.0, 4096, 3
+SCENE_LEVELS = [SCENE_N, SCENE_N // 8, SCENE_N // 32, SCENE_N // 128, SCENE_N // 256]
+# Card vs CPU (phase 9): B1 x 24576 at the same density, on two scenes
+# (SCENE_CMP_SEEDS). The logits must agree within SCENE_LOGIT_RTOL *
+# max(|cpu|, 1) at every point, as in phase 5, when the level-2 FPS and kNN
+# indices agree. Level 2 searches l1_xyz, an output of adaptive sampling
+# that differs by ~1e-7 between card and CPU, so a near tie among 3072
+# points may flip (the count is printed); a flipped sample moves the few
+# points that interpolate from it, so with flips the bound must hold at
+# 99.9 % of the points and every point within SCENE_FLIP_CAP times it.
+# Wherever the CPU's top two logits are further apart than twice the bound,
+# the argmax must agree.
+SCENE_CMP_N, SCENE_CMP_SEEDS, SCENE_LOGIT_RTOL = 24576, (20, 21), 1e-4
+SCENE_FLIP_SHARE, SCENE_FLIP_CAP = 0.999, 10.0
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
 # HBM bandwidth, for each kernel's bound.
@@ -136,12 +173,18 @@ def time_ms(fn, reps: int = 20, calls: int = 1, warmup: int = 3) -> list:
     return out
 
 
-def in_turns(plain, kernel, reps: int = 20, calls: int = 10):
+# (samples, calls a sample) for time_ms: a kernel of microseconds, one of
+# milliseconds, and a plain version that takes seconds.
+LIGHT, HEAVY, SLOW = (20, 10), (6, 2), (2, 1)
+
+
+def in_turns(plain, kernel, timing=LIGHT, plain_timing=None):
     """Median ms a call of plain and of kernel, timed in the order plain,
-    kernel, kernel, plain."""
-    p = time_ms(plain, reps // 2, calls, warmup=1)
+    kernel, kernel, plain, each with its (samples, calls a sample)."""
+    (reps, calls), (pr, pc) = timing, plain_timing or timing
+    p = time_ms(plain, pr // 2, pc, warmup=1)
     k = time_ms(kernel, reps // 2, calls) + time_ms(kernel, reps // 2, calls)
-    p += time_ms(plain, reps // 2, calls, warmup=1)
+    p += time_ms(plain, pr // 2, pc, warmup=1)
     return statistics.median(k), statistics.median(p)
 
 
@@ -352,15 +395,16 @@ def layer_indices(xyz: torch.Tensor, npoint: int, k: int):
 
 
 def counts():
-    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn
+    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial
 
-    return {"fps": fps.launches, "knn_resident": knn.launches, "ball_query": ball_query.launches}
+    return {"fps": fps.launches, "knn_resident": knn.launches, "ball_query": ball_query.launches,
+            "knn_spatial": knn_spatial.launches}
 
 
 def reset_counts():
-    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn
+    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial
 
-    fps.launches = knn.launches = ball_query.launches = 0
+    fps.launches = knn.launches = ball_query.launches = knn_spatial.launches = 0
 
 
 def phase_cls(dev):
@@ -379,7 +423,8 @@ def phase_cls(dev):
     torch.cuda.synchronize()
     launches = counts()
     print(f"cls slice: {REQUESTS} requests of B{BATCH}x{NUM_POINT}; launches {launches}")
-    if launches != {"fps": 2 * REQUESTS, "knn_resident": 2 * REQUESTS, "ball_query": 0}:
+    if launches != {"fps": 2 * REQUESTS, "knn_resident": 2 * REQUESTS, "ball_query": 0,
+                    "knn_spatial": 0}:
         raise RuntimeError(f"cls launches {launches}, expected 2 FPS and 2 kNN a request")
 
     for r, (x, out) in enumerate(zip(clouds, logits)):
@@ -459,7 +504,7 @@ def phase_seg(dev):
     print(f"seg slice: PointASNLSemSegRes({SEG_CLASSES}), {n_params} parameters; "
           f"{SEG_STEPS} train steps of B{SEG_B}x{SEG_N}; launches {launches}")
     if launches != {"fps": 4 * SEG_STEPS, "knn_resident": 11 * SEG_STEPS,
-                    "ball_query": SEG_STEPS}:
+                    "ball_query": SEG_STEPS, "knn_spatial": 0}:
         raise RuntimeError(f"seg train launches {launches}, expected FPS 4, kNN 11 and "
                            f"ball query 1 a step")
     for s, m in enumerate(metrics):
@@ -483,7 +528,7 @@ def phase_seg(dev):
     serve_launches = counts()
     print(f"seg serve: {SEG_REQUESTS} requests of B{SEG_B}x{SEG_N}; launches {serve_launches}")
     if serve_launches != {"fps": 4 * SEG_REQUESTS, "knn_resident": 11 * SEG_REQUESTS,
-                          "ball_query": 0}:
+                          "ball_query": 0, "knn_spatial": 0}:
         raise RuntimeError(f"seg serve launches {serve_launches}, expected FPS 4, kNN 11 and "
                            f"no ball query a request")
     for r, out in enumerate(logits):
@@ -568,23 +613,206 @@ def phase_card_vs_cpu(dev):
           f"(limit {YARDSTICK:g} x |cpu - cpu64| + {FLOOR_RTOL:g} x scale)")
 
 
-def time_kernels(dev, card):
-    """Kernel vs plain times, and bounds, at both slices' shapes."""
+def scene(seed: int, N: int, dev) -> torch.Tensor:
+    """A B1 surface scene of N points at the whole scene's density (extent
+    6.0 at 131072); seed 0 at 131072 is bench.py's whole-scene input."""
+    from pointasnl_tpu_torch.data import surface_scene
+
+    extent = SCENE_EXTENT * (N / SCENE_N) ** 0.5
+    return torch.from_numpy(surface_scene(np.random.RandomState(seed), 1, N, extent=extent)).to(dev)
+
+
+def scene_levels(dev, seed: int = 0):
+    """The xyz of a whole-scene request's five levels, FPS of FPS of the scene."""
     from pointasnl_tpu_torch.ops import geometry
-    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn
+    from pointasnl_tpu_torch.ops.cuda import fps
+
+    levels = [scene(seed, SCENE_N, dev)]
+    for n in SCENE_LEVELS[1:]:
+        levels.append(geometry.gather_point(levels[-1], fps.farthest_point_sample(n, levels[-1])))
+    return levels
+
+
+def scene_spatial_shapes(levels):
+    """(name, support, query, k) of the request's three spatial searches; the
+    stem passes the scene twice, a self-query."""
+    return [(f"{q.shape[1]}q/{s.shape[1]} k{k}", s, s if si == qi else q, k)
+            for si, qi, k in SEG_KNN for s, q in [(levels[si], levels[qi])]
+            if s.shape[1] > 12288]
+
+
+def phase_scene_fps(dev) -> float:
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import fps
+
+    levels = scene_levels(dev)
+    cases = [(f"B1 N{SCENE_N} -> {SCENE_LEVELS[1]} (scene level 1)", levels[0], SCENE_LEVELS[1]),
+             (f"B1 N{SCENE_LEVELS[1]} -> {SCENE_LEVELS[2]} (scene level 2)", levels[1],
+              SCENE_LEVELS[2]),
+             ("duplicate points B2 N20000 -> 2000", cloud(8, 2, 20000, dev, dup=10000), 2000),
+             ("N 10241, the cluster design's smallest", cloud(9, 2, 10241, dev), 500)]
+    for name, x, npoint in cases:
+        got = fps.farthest_point_sample(npoint, x)
+        want = geometry.farthest_point_sample(npoint, x)
+        torch.cuda.synchronize()
+        if got.shape != (x.shape[0], npoint) or not torch.equal(got, want):
+            raise RuntimeError(f"fps {name}: kernel and plain differ")
+        print(f"fps {name}: indices exact")
+    return 0.0
+
+
+def spatial_cases(dev):
+    """(name, support, query, k) of the spatial kNN's checks: the request's
+    three searches, then edge cases."""
+    rng = np.random.RandomState(10)
+    cases = scene_spatial_shapes(scene_levels(dev))
+    d = cloud(11, 1, 20000, dev, dup=10000)
+    cases.append(("duplicates 20000 k16 (self)", d, d, 16))
+    far = torch.from_numpy((rng.randn(1, 16484, 3) * 0.05 + 1e3).astype(np.float32)).to(dev)
+    cases.append(("1e3 from the origin 16484 k32 (self)", far, far, 32))
+    r = scene(12, 13001, dev)
+    cases.append(("N 13001, not a multiple of the segment (self)", r, r, 32))
+    g = cloud(13, 1, 32768, dev)
+    cases.append(("Gaussian 32768 k32 (self)", g, g, 32))
+    b2 = torch.cat([scene(14, 20000, dev), scene(15, 20000, dev)])
+    cases.append(("B2 20000 k32 (self)", b2, b2, 32))
+    cases.append(("disjoint 5000q/30000 k32", scene(16, 30000, dev), scene(17, 5000, dev), 32))
+    return cases
+
+
+def phase_spatial(dev) -> float:
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import knn_spatial
+
+    worst = 0.0
+    for name, support, query, k in spatial_cases(dev):
+        got_d, got_i = knn_spatial.knn_point(k, support, query)
+        want_d, want_i = geometry.knn_point(k, support, query)
+        torch.cuda.synchronize()
+        if not torch.equal(got_i, want_i):
+            raise RuntimeError(f"spatial knn {name}: {int((got_i != want_i).sum())} indices differ")
+        err = (got_d - want_d).abs()
+        if bool((err > 1e-6 * want_d.abs()).any()):
+            raise RuntimeError(f"spatial knn {name}: dist2 beyond 1e-6 relative "
+                               f"(max abs {float(err.max()):.3e})")
+        worst = max(worst, float(err.max()))
+        print(f"spatial knn {name}: indices exact, max |d2 err| {float(err.max()):.3e}")
+        del got_d, got_i, want_d, want_i
+    return worst
+
+
+def phase_scene(dev):
+    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+    from pointasnl_tpu_torch.serve import make_inference_fn
+
+    model = PointASNLSemSegRes(SEG_CLASSES, nl_kv_block_size=SCENE_BLOCK,
+                               generator=torch.Generator().manual_seed(SEED), device=dev)
+    infer = make_inference_fn(model)
+    scenes = [scene(r, SCENE_N, dev) for r in range(SCENE_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits = [infer(x) for x in scenes]
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"whole scene: {SCENE_REQUESTS} requests of B1x{SCENE_N} (nl_kv_block_size "
+          f"{SCENE_BLOCK}); launches {launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = {"fps": 4 * SCENE_REQUESTS, "knn_resident": 8 * SCENE_REQUESTS, "ball_query": 0,
+            "knn_spatial": 3 * SCENE_REQUESTS}
+    if launches != want:
+        raise RuntimeError(f"whole-scene launches {launches}, expected FPS 4, spatial kNN 3, "
+                           f"resident kNN 8 and no ball query a request")
+    for r, out in enumerate(logits):
+        if out.shape != (1, SCENE_N, SEG_CLASSES) or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"whole-scene request {r}: logits {tuple(out.shape)} not all finite")
+    print(f"whole scene: logits {tuple(logits[0].shape)} finite")
+    return infer, scenes[0], launches
+
+
+def phase_scene_card_vs_cpu(dev):
+    from pointasnl_tpu_torch import ops
+    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+    from pointasnl_tpu_torch.serve import make_inference_fn
+
+    card = PointASNLSemSegRes(SEG_CLASSES, nl_kv_block_size=SCENE_BLOCK,
+                              generator=torch.Generator().manual_seed(SEED + 2), device=dev)
+    cpu = PointASNLSemSegRes(SEG_CLASSES, nl_kv_block_size=SCENE_BLOCK, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    models = {"card": (card, make_inference_fn(card)), "cpu": (cpu, make_inference_fn(cpu))}
+    n1, n2 = SCENE_CMP_N // 8, SCENE_CMP_N // 32
+    failed = []
+    for seed in SCENE_CMP_SEEDS:
+        x = scene(seed, SCENE_CMP_N, dev)
+        l1, outs = {}, {}
+        for name, (model, infer) in models.items():
+            store = []
+            hook = capture_l1_xyz(model, store)
+            t0 = time.perf_counter()
+            outs[name] = infer(x if name == "card" else x.cpu()).cpu()
+            torch.cuda.synchronize()
+            hook.remove()
+            l1[name] = store[0]
+            print(f"scene card vs cpu, seed {seed}: {name} forward in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        # Level 1 from the input alone: the stem's self-kNN and the FPS.
+        xc = x.cpu()
+        for what, a, b in (("stem kNN", ops.knn_point(32, x, x)[1], ops.knn_point(32, xc, xc)[1]),
+                           ("level-1 FPS", ops.farthest_point_sample(n1, x),
+                            ops.farthest_point_sample(n1, xc))):
+            if not torch.equal(a.cpu(), b):
+                raise RuntimeError(f"scene card vs cpu, seed {seed}: {what} indices differ")
+        flips = [int((a != b).sum()) for a, b in zip(layer_indices(l1["card"], n2, 32),
+                                                      layer_indices(l1["cpu"], n2, 32))]
+        out, ref = outs["card"][0], outs["cpu"][0]
+        scale = max(float(ref.abs().max()), 1.0)
+        tol = SCENE_LOGIT_RTOL * scale
+        err = (out - ref).abs().amax(dim=-1)
+        share = float((err <= tol).float().mean())
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        argmax_off = int((out.argmax(-1) != ref.argmax(-1))[clear].sum())
+        need, cap = (1.0, 1.0) if flips == [0, 0] else (SCENE_FLIP_SHARE, SCENE_FLIP_CAP)
+        outside = int((err > tol).sum())
+        print(f"scene card vs cpu, seed {seed}, B1x{SCENE_CMP_N}: stem kNN and level-1 FPS "
+              f"indices exact; level-2 indices differing: fps {flips[0]}, knn {flips[1]}; "
+              f"|card - cpu| max {float(err.max()):.3e} = {float(err.max()) / tol:.3f} x tol "
+              f"(scale {scale:.3e}, tol {tol:.1e}, cap {cap:g} x tol); points within tol "
+              f"{100 * share:.3f} % (need {100 * need:g} %), {outside} outside, margin "
+              f"{int(len(err) * (1 - need)) - outside} points; argmax differing at "
+              f"{argmax_off} of {int(clear.sum())} points with a clear top class")
+        if share < need or float(err.max()) > cap * tol or argmax_off:
+            failed.append(seed)
+    if failed:
+        raise RuntimeError(f"scene card vs cpu: card logits disagree with the CPU forward "
+                           f"on the scenes of seeds {failed}")
+
+
+def spatial_bound(B, N, M, k):
+    # Bytes: the clouds in and the rows out, each once. The operations the
+    # function needs are its M * k pairs' distances, far below the bytes'
+    # time; the pairs a kernel tests depend on how it prunes, so they are
+    # reported beside the bound (pairs_tested), not counted in it.
+    return bound(B * (N + M) * 12 + B * M * k * 8, B * M * k * 9)
+
+
+def time_kernels(dev, card):
+    """Kernel vs plain times, and bounds, at every slice's shapes."""
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial
 
     rows = {name: [] for name in KERNELS}
 
-    def add(name, path, shape, plain, kernel, bnd, heavy=False):
-        reps, calls = (6, 2) if heavy else (20, 10)
-        call_ms, p_ms = in_turns(plain, kernel, reps, calls)
-        dev_ms = device_ms(kernel, KERNELS[name]["symbol"])
+    def add(name, path, shape, plain, kernel, bnd, timing=LIGHT, plain_timing=None,
+            symbol=None, **extra):
+        call_ms, p_ms = in_turns(plain, kernel, timing, plain_timing)
+        dev_ms = device_ms(kernel, symbol or KERNELS[name]["symbol"])
         if dev_ms is None:
             print(f"time {name} {shape}: the profiler saw no launch; ms is the call time")
         rows[name].append({"path": path, "shape": shape,
                            "ms": call_ms if dev_ms is None else dev_ms, "call_ms": call_ms,
                            "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                           "library_ms": None})
+                           "library_ms": None, **extra})
 
     for B, N, npoint in FPS_SHAPES:
         x = cloud(11, B, N, dev)
@@ -599,12 +827,13 @@ def time_kernels(dev, card):
     for a, n in zip(levels, SEG_LEVELS[1:]):
         add("fps", "seg", f"B{SEG_B} N{a.shape[1]}->{n}",
             lambda: geometry.farthest_point_sample(n, a), lambda: fps.farthest_point_sample(n, a),
-            fps_bound(SEG_B, a.shape[1], n), heavy=n >= 320)
+            fps_bound(SEG_B, a.shape[1], n), timing=HEAVY if n >= 320 else LIGHT)
     for si, qi, k in SEG_KNN:
         s, q = levels[si], levels[qi]
         N, M = s.shape[1], q.shape[1]
         add("knn_resident", "seg", f"B{SEG_B} {M}q/{N} k{k}", lambda: geometry.knn_point(k, s, q),
-            lambda: knn.knn_point(k, s, q), knn_bound(SEG_B, N, M, k), heavy=N * M >= 10**7)
+            lambda: knn.knn_point(k, s, q), knn_bound(SEG_B, N, M, k),
+            timing=HEAVY if N * M >= 10**7 else LIGHT)
     l1 = levels[1]
     idx, cnt = ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1)
     n1 = l1.shape[1]
@@ -612,11 +841,37 @@ def time_kernels(dev, card):
         lambda: geometry.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1),
         lambda: ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1),
         ball_bound(n1, n1, SEG_B, REPULSION_NSAMPLE, idx, cnt))
+
+    # The whole-scene request's shapes, on a scene of bench.py's density.
+    levels = scene_levels(dev, seed=23)
+    for a, n in zip(levels, SCENE_LEVELS[1:]):
+        N = a.shape[1]
+        add("fps", "scene", f"B1 N{N}->{n}", lambda: geometry.farthest_point_sample(n, a),
+            lambda: fps.farthest_point_sample(n, a), fps_bound(1, N, n),
+            timing=(10, 2) if N == SCENE_N else HEAVY if N > 1024 else LIGHT,
+            plain_timing=SLOW if N == SCENE_N else None,
+            symbol=FPS_CLUSTER_SYMBOL if N > 10240 else None)
+    for name, s, q, k in scene_spatial_shapes(levels):
+        N, M = s.shape[1], q.shape[1]
+        tested = knn_spatial.pairs_tested(k, s, q)  # one untimed call that counts
+        add("knn_spatial", "scene", f"B1 {name}", lambda: geometry.knn_point(k, s, q),
+            lambda: knn_spatial.knn_point(k, s, q), spatial_bound(1, N, M, k), (10, 2), SLOW,
+            pairs_tested=tested, pairs_tested_share=tested / (N * M))
+    for si, qi, k in SEG_KNN:
+        s, q = levels[si], levels[qi]
+        N, M = s.shape[1], q.shape[1]
+        if N <= 12288:
+            add("knn_resident", "scene", f"B1 {M}q/{N} k{k}", lambda: geometry.knn_point(k, s, q),
+                lambda: knn.knn_point(k, s, q), knn_bound(1, N, M, k),
+                timing=HEAVY if N * M >= 10**7 else LIGHT)
     for name, rs in rows.items():
         for r in rs:
+            tested = (f", pairs tested {r['pairs_tested']} ({100 * r['pairs_tested_share']:.3f} % "
+                      f"of M x N)" if "pairs_tested" in r else "")
             print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms on the "
                   f"device, {r['call_ms']:.4f} ms a call back to back, plain "
-                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})  [{card}]")
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+                  f"{tested}  [{card}]")
     return rows
 
 
@@ -625,7 +880,7 @@ def percentiles(samples):
     return statistics.median(s), s[max(int(0.9 * len(s)) - 1, 0)]
 
 
-def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer):
+def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x):
     x = cloud(13, BATCH, NUM_POINT, dev)
     fwd, p90 = percentiles(time_ms(lambda: cls_infer(x), reps=50))
     print(f"time cls forward B{BATCH}x{NUM_POINT}: p50 {fwd:.3f} ms, p90 {p90:.3f} ms of 50 "
@@ -649,42 +904,60 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer):
     print(f"time seg serve forward B{SEG_B}x{SEG_N}: p50 {serve_p50:.3f} ms, p90 "
           f"{serve_p90:.3f} ms of 10 (CUDA events); {SEG_B * SEG_N / serve_p50 * 1e3:.0f} "
           f"points/s at p50  [{card}]")
-    profile_steps(seg_state, seg_step, batch, card)
-    return {"cls_forward_ms": fwd, "seg_step_ms": step_p50, "seg_serve_ms": serve_p50}
+    profile_window(lambda: seg_step(seg_state, batch), 3,
+                   {"fps": 4, "knn": 11, "knn_spatial": 0, "ball_query": 1}, card,
+                   "seg train steps", "profile_seg_step.json")
+
+    torch.cuda.reset_peak_memory_stats()
+    scene_p50, scene_p90 = percentiles(time_ms(lambda: scene_infer(scene_x), reps=10, warmup=1))
+    print(f"time whole-scene request B1x{SCENE_N}: p50 {scene_p50:.3f} ms, p90 {scene_p90:.3f} "
+          f"ms of 10 (CUDA events); {SCENE_N / scene_p50 * 1e3:.0f} points/s at p50; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    profile_window(lambda: scene_infer(scene_x), 2,
+                   {"fps": 4, "knn": 8, "knn_spatial": 3, "ball_query": 0}, card,
+                   "whole-scene requests", "profile_whole_scene.json")
+    return {"cls_forward_ms": fwd, "seg_step_ms": step_p50, "seg_serve_ms": serve_p50,
+            "scene_ms": scene_p50}
 
 
-def profile_steps(state, step, batch, card, n: int = 3):
-    """One torch.profiler window over n train steps, after one traced and
-    dropped warm-up step: device-busy share and device time by kernel name,
-    the three ported kernels picked out with the launches recorded."""
+# Each ported kernel's launches in a profiler trace, by the names they hold.
+PROFILE_SYMBOLS = {"fps": ("fps_kernel", FPS_CLUSTER_SYMBOL), "knn": ("knn_kernel",),
+                   "knn_spatial": ("knn_spatial_kernel",), "ball_query": ("ball_query_kernel",)}
+
+
+def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
+    """One torch.profiler window over n calls of fn, after one traced and
+    dropped warm-up call: device-busy share and device time by kernel name,
+    the ported kernels picked out with the launches recorded (`per_call`
+    launches expected a call)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    traces = []  # the active steps' events, handed over when the cycle ends
+    traces = []  # the active calls' events, handed over when the cycle ends
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=n),
                  on_trace_ready=lambda prof: traces.append(prof.events())) as prof:
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
         prof.step()
         t0 = time.perf_counter()
         for i in range(n):
-            step(state, batch)
+            fn()
             if i == n - 1:
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
             prof.step()
-    events = traces[0] if traces else []
+    events = [e for e in (traces[0] if traces else [])
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not events:
+        print(f"profile, {label}: the profiler recorded no device time; see the CUDA-event times")
+        return
     spans, by_name = [], {}
     for e in events:
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            start, end = e.time_range.start, e.time_range.end
-            spans.append((start, end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (end - start)
-    if not spans:
-        print("profile: the profiler recorded no device time; see the CUDA-event times")
-        return
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start)
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -695,56 +968,87 @@ def profile_steps(state, step, batch, card, n: int = 3):
     busy += cur_e - cur_s
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    ours = {k: sum(v for name, v in by_name.items() if f"{k}_kernel" in name)
-            for k in ("fps", "knn", "ball_query")}
-    seen = {k: sum(1 for e in events if f"{k}_kernel" in e.name
-                   and e.device_type == torch.autograd.DeviceType.CUDA) for k in ours}
-    expected = {"fps": 4 * n, "knn": 11 * n, "ball_query": n}
-    print(f"profile: launches recorded {seen} of {expected}" +
+
+    def ours(name):  # no symbol is a part of another
+        return next((k for k, syms in PROFILE_SYMBOLS.items() if any(s in name for s in syms)),
+                    None)
+
+    mine = {k: 0.0 for k in PROFILE_SYMBOLS}
+    seen = {k: 0 for k in PROFILE_SYMBOLS}
+    for e in events:
+        k = ours(e.name)
+        if k:
+            mine[k] += e.time_range.end - e.time_range.start
+            seen[k] += 1
+    expected = {k: v * n for k, v in per_call.items()}
+    print(f"profile, {label}: launches recorded {seen} of {expected}" +
           ("" if seen == expected else "; the profiler dropped some: shares are lower bounds"))
-    print(f"profile, {n} seg train steps: wall {wall_us / n / 1e3:.3f} ms a step under the "
-          f"profiler; device busy {busy / n / 1e3:.3f} ms a step ({100 * busy / wall_us:.1f} % "
-          f"of the wall); {len(spans) // n} device activities a step  [{card}]")
-    print("profile, device ms a step: " + "; ".join(
-        f"{k} {v / n / 1e3:.3f} ({100 * v / total:.1f} %)" for k, v in ours.items()))
+    print(f"profile, {n} {label}: wall {wall_us / n / 1e3:.3f} ms a call under the profiler; "
+          f"device busy {busy / n / 1e3:.3f} ms a call ({100 * busy / wall_us:.1f} % of the "
+          f"wall); {len(spans) // n} device activities a call  [{card}]")
+    print(f"profile, {label}, device ms a call: " + "; ".join(
+        f"{k} {v / n / 1e3:.3f} ({100 * v / total:.1f} %)" for k, v in mine.items()))
     for name, us in top[:12]:
         print(f"profile top: {us / n / 1e3:8.3f} ms {100 * us / total:5.1f} %  {name[:110]}")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    (OUT_DIR / "profile_seg_step.json").write_text(json.dumps(
-        {"card": card, "steps": n, "wall_us": wall_us, "busy_us": busy,
+    (OUT_DIR / out_name).write_text(json.dumps(
+        {"card": card, "calls": n, "wall_us": wall_us, "busy_us": busy,
          "device_us_by_name": dict(top)}, indent=1))
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def mark(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     card, dev = phase_device()
     errs = {"fps": phase_fps(dev), "knn_resident": phase_knn(dev), "ball_query": phase_ball(dev)}
+    mark("kernel checks of slices 1-2")
     cls_infer, cls_launches = phase_cls(dev)
     seg_state, seg_step, seg_infer, seg_launches, serve_launches = phase_seg(dev)
     phase_card_vs_cpu(dev)
+    mark("slices 1-2")
+    errs["fps"] = max(errs["fps"], phase_scene_fps(dev))
+    errs["knn_spatial"] = phase_spatial(dev)
+    scene_infer, scene_x, scene_launches = phase_scene(dev)
+    phase_scene_card_vs_cpu(dev)
+    mark("slice 3")
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     print(f"card before timing: {clocks} = {smi(clocks)}")
     rows = time_kernels(dev, card)
-    time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer)
+    mark("kernel timing")
+    time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x)
     print(f"card after timing: {clocks} = {smi(clocks)}")
+    mark("path timing")
     records = []
     for name, meta in KERNELS.items():
-        seg = [r for r in rows[name] if r["path"] == "seg"]  # one train step's shapes
-        top = max(seg, key=lambda r: r["bound_ms"])
+        # ms, call_ms, plain_ms and bound_ms sum the shapes of one call of a
+        # path: the seg train step's, or for the spatial kernel (which that
+        # step never launches) the whole-scene request's.
+        path = "scene" if name == "knn_spatial" else "seg"
+        shapes = [r for r in rows[name] if r["path"] == path]
+        top = max(shapes, key=lambda r: r["bound_ms"])
+        by_path = {"cls_serve": cls_launches[name], "seg_train": seg_launches[name],
+                   "seg_serve": serve_launches[name], "whole_scene": scene_launches[name]}
         records.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
-            "launches": cls_launches[name] + seg_launches[name] + serve_launches[name],
-            "launches_by_path": {"cls_serve": cls_launches[name], "seg_train": seg_launches[name],
-                                 "seg_serve": serve_launches[name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[name],
-            "ms": sum(r["ms"] for r in seg),
-            "call_ms": sum(r["call_ms"] for r in seg),
-            "plain_ms": sum(r["plain_ms"] for r in seg),
-            "bound_ms": sum(r["bound_ms"] for r in seg),
+            "ms_path": {"seg": "seg_train", "scene": "whole_scene"}[path],
+            "ms": sum(r["ms"] for r in shapes),
+            "call_ms": sum(r["call_ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            "bound_ms": sum(r["bound_ms"] for r in shapes),
             "bound_by": top["bound_by"],
             "library_ms": None,
             "by_shape": rows[name],
         })
-    print(json.dumps({"kernels": records}))
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    line = json.dumps({"kernels": records})
+    (OUT_DIR / "kernels.json").write_text(line)
+    print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

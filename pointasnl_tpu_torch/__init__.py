@@ -11,11 +11,13 @@ held against. It mirrors that package's layout and names:
 - ``pointasnl_tpu_torch.train``  — schedules, optimizer, train/eval steps.
 - ``pointasnl_tpu_torch.utils``  — the flax -> ``state_dict`` converter.
 - ``pointasnl_tpu_torch.serve``  — the inference forward.
+- ``pointasnl_tpu_torch.data``   — synthetic scenes (numpy).
 
 The port runs in float32, on the card unless a model is built with
 ``device="cpu"``. So far it covers the eval forward of the classifier
-(``pointasnl_cls``) and the train step and eval forward of the residual
-segmentation model (``pointasnl_sem_seg_res``).
+(``pointasnl_cls``), the train step and eval forward of the residual
+segmentation model (``pointasnl_sem_seg_res``), and that model's
+whole-scene forward in one pass (``nl_kv_block_size``).
 """
 
 __version__ = "0.1.0"

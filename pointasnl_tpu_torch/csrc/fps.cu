@@ -14,25 +14,47 @@
 // the latency of one pick -- a pass over shared memory, two warp-shuffle
 // reductions and two block barriers -- times npoint.
 //
-// What the design does about it: one block per cloud, so the chain never
-// leaves the SM. The cloud (as x, y, z rows) and the running minimum distance
-// live in shared memory for the whole run; device memory is read once and the
-// indices are written once. The argmax is a warp-shuffle reduction over
-// (value, -index), then one warp reduces the per-warp winners. With B = 8
-// only 8 SMs work; spreading a cloud over a cluster of blocks is later work.
+// What the design does about it, two designs routed by N:
+//
+// - N <= 10240 (fps_kernel): one block per cloud, so the chain never leaves
+//   the SM. The cloud (as x, y, z rows) and the running minimum distance live
+//   in shared memory for the whole run; device memory is read once and the
+//   indices are written once. The argmax is a warp-shuffle reduction over
+//   (value, -index), then one warp reduces the per-warp winners.
+// - 10240 < N <= 131072 (fps_cluster_kernel, whole scenes): a cloud of
+//   131072 points and its running minimum need 2 MB, past the 227 KB of one
+//   block. So one cloud is spread over a thread-block cluster of 8 blocks on
+//   8 SMs. Each block holds its eighth of the cloud in shared memory (up to
+//   16384 points, 192 KB) and each thread the running minimum of its 16
+//   points in registers. A pick is each block's argmax as above, written to
+//   a slot in its shared memory; one cluster barrier; then warp 0 of every
+//   block reads the 8 slots through distributed shared memory and reduces
+//   them to the same winner, with its coordinates. The slots alternate
+//   between two buffers, so one cluster barrier a pick suffices.
 //
 // Numerics: the distance is (dx*dx + dy*dy) + dz*dz with every step rounded
 // on its own (__fmul_rn / __fadd_rn keep nvcc from contracting to fma), the
 // formula of the plain PyTorch version and of the JAX oracle, so all pick
 // the same indices.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr float kFpsInf = 1e38f;
+constexpr int kBlockMaxN = 10240;  // four float rows of N in 227 KB of shared memory
+// The cluster design: 8 blocks (the portable cluster size) of 1024 threads,
+// 16 points a thread.
+constexpr int kCluster = 8;
+constexpr int kClusterThreads = 1024;
+constexpr int kPointsPerThread = 16;
+constexpr int kClusterMaxN = kCluster * kClusterThreads * kPointsPerThread;  // 131072
 
 __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
   if (ov > v || (ov == v && oi < i)) {
@@ -115,15 +137,142 @@ __global__ void fps_kernel(const float* __restrict__ xyz, int32_t* __restrict__ 
   }
 }
 
+__device__ __forceinline__ float sqdist(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// A block's candidate for a pick: its running-minimum argmax and the point.
+struct Pick {
+  float v;
+  int i;
+  float x, y, z;
+};
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kClusterThreads, 1)
+fps_cluster_kernel(const float* __restrict__ xyz, int32_t* __restrict__ out, int n,
+                   int npoint) {
+  extern __shared__ float smem[];
+  __shared__ Pick slot[2];
+  __shared__ float warp_v[kClusterThreads / 32];
+  __shared__ int warp_i[kClusterThreads / 32];
+  __shared__ float pick[3];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / kCluster;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int per_block = (n + kCluster - 1) / kCluster;
+  const int base = rank * per_block;  // this block holds [base, base + count)
+  const int count = max(0, min(per_block, n - base));
+  float* sx = smem;
+  float* sy = sx + per_block;
+  float* sz = sy + per_block;
+  const float* p = xyz + (size_t)b * n * 3;
+  int32_t* o = out + (size_t)b * npoint;
+
+  for (int i = tid; i < count; i += kClusterThreads) {
+    sx[i] = p[3 * (base + i) + 0];
+    sy[i] = p[3 * (base + i) + 1];
+    sz[i] = p[3 * (base + i) + 2];
+  }
+  float md[kPointsPerThread];  // running minimum of points tid, tid + 1024, ...
+#pragma unroll
+  for (int r = 0; r < kPointsPerThread; ++r) md[r] = kFpsInf;
+  if (rank == 0 && tid == 0) o[0] = 0;
+  float px = p[0], py = p[1], pz = p[2];
+  __syncthreads();
+
+  for (int j = 1; j < npoint; ++j) {
+    float best_v = -1.0f;
+    int best_i = INT_MAX;
+#pragma unroll
+    for (int r = 0; r < kPointsPerThread; ++r) {
+      const int l = r * kClusterThreads + tid;
+      if (l < count) {
+        const float m = fminf(md[r], sqdist(sx[l] - px, sy[l] - py, sz[l] - pz));
+        md[r] = m;
+        if (m > best_v) {  // strict: the lowest of this thread's indices wins ties
+          best_v = m;
+          best_i = base + l;
+        }
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best_v, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
+      argmax_merge(best_v, best_i, ov, oi);
+    }
+    if (lane == 0) {
+      warp_v[warp] = best_v;
+      warp_i[warp] = best_i;
+    }
+    __syncthreads();
+    Pick* mine = &slot[j & 1];
+    if (warp == 0) {
+      float v = warp_v[lane];
+      int i = warp_i[lane];
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+        argmax_merge(v, i, ov, oi);
+      }
+      if (lane == 0) {
+        const int l = i == INT_MAX ? 0 : i - base;
+        *mine = Pick{v, i, sx[l], sy[l], sz[l]};
+      }
+    }
+    cluster.sync();  // every block's slot is written and visible
+    if (warp == 0) {
+      Pick c{-1.0f, INT_MAX, 0.0f, 0.0f, 0.0f};
+      if (lane < kCluster) c = *cluster.map_shared_rank(mine, lane);
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, c.v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, c.i, off);
+        const float ox = __shfl_xor_sync(0xffffffffu, c.x, off);
+        const float oy = __shfl_xor_sync(0xffffffffu, c.y, off);
+        const float oz = __shfl_xor_sync(0xffffffffu, c.z, off);
+        if (ov > c.v || (ov == c.v && oi < c.i)) c = Pick{ov, oi, ox, oy, oz};
+      }
+      if (lane == 0) {
+        pick[0] = c.x;
+        pick[1] = c.y;
+        pick[2] = c.z;
+        if (rank == 0) o[j] = c.i;
+      }
+    }
+    __syncthreads();
+    px = pick[0];
+    py = pick[1];
+    pz = pick[2];
+  }
+  cluster.sync();  // no block exits while another may still read its slots
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest N the kernel takes: four float rows of N in shared memory must fit
-// the 227 KB a block may use.
-int pasnl_fps_max_n() { return 10240; }
+// Largest N of each design.
+int pasnl_fps_max_n() { return kBlockMaxN; }
+int pasnl_fps_cluster_max_n() { return kClusterMaxN; }
+
+int pasnl_fps_cluster(const void* xyz, void* out, int b, int n, int npoint, void* stream) {
+  if (n < 1 || n > kClusterMaxN || npoint < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)3 * ((n + kCluster - 1) / kCluster) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fps_cluster_kernel<<<b * kCluster, kClusterThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)xyz, (int32_t*)out, n, npoint);
+  return (int)cudaGetLastError();
+}
 
 int pasnl_fps(const void* xyz, void* out, int b, int n, int npoint, void* stream) {
+  if (n < 1 || n > kBlockMaxN || npoint < 1) return (int)cudaErrorInvalidValue;
   int threads = ((n + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const size_t smem = (size_t)4 * n * sizeof(float);

@@ -37,10 +37,13 @@ class PointASNLSemSegRes(nn.Module):
     and hands level 1 the graph's rows at its samples: the same neighbours
     the level-1 search would find, without that search. ``dropout_keep`` is
     the head dropout's keep probability (1.0 turns it off).
+    ``nl_kv_block_size`` streams every non-local cell's K/V in blocks of
+    that size (whole-scene inference); it adds no parameters.
     """
 
     def __init__(self, num_class: int = 21, feature_channel: int = 0, *,
-                 reuse_geometry: bool = True, dropout_keep: float = 0.5,
+                 nl_kv_block_size: Optional[int] = None, reuse_geometry: bool = True,
+                 dropout_keep: float = 0.5,
                  generator: Optional[torch.Generator] = None,
                  device: torch.device = torch.device("cuda")):
         super().__init__()
@@ -50,7 +53,8 @@ class PointASNLSemSegRes(nn.Module):
 
         def sa(in_channels, mlp, as_neighbor, NL=True, downsample=True):
             return PointASNLSetAbstraction(in_channels, None, 32, mlp, as_neighbor=as_neighbor,
-                                           NL=NL, downsample=downsample, generator=g)
+                                           NL=NL, downsample=downsample,
+                                           nl_kv_block_size=nl_kv_block_size, generator=g)
 
         c0 = feature_channel if feature_channel > 0 else 3
         self.layer0 = sa(c0, (16, 16, 32), 0, NL=False, downsample=False)

@@ -11,11 +11,12 @@ module names and the same reference quirks:
   - the ``bmkc,bmkw->bmcw`` product is flattened channel-major before
     ``after_conv``.
 
-Ported so far: the dense ``mode="dot"`` non-local cell, and the SA cell on
-both its paths (down-sampling, N != npoint, and same-resolution, N ==
-npoint), with kNN or ball grouping and the ``fps_idx`` / ``knn_idx`` hints.
-The concat mode, the blockwise and flash attention, the ``support_*``
-decoupling of whole-scene inference and the decoding layer wait.
+Ported so far: the ``mode="dot"`` non-local cell, dense or with K/V streamed
+in blocks (``kv_block_size``), and the SA cell on both its paths
+(down-sampling, N != npoint, and same-resolution, N == npoint), with kNN or
+ball grouping and the ``fps_idx`` / ``knn_idx`` hints. The concat mode, the
+flash attention, the ``support_*`` decoupling of sharded whole-scene
+inference and the decoding layer wait.
 """
 
 from __future__ import annotations
@@ -27,13 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointasnl_tpu_torch import ops
+from pointasnl_tpu_torch.nn.blockwise import attention_scale, blockwise_attention
 from pointasnl_tpu_torch.nn.layers import PointConv
-
-
-def _attention_scale(channels: int) -> float:
-    """sqrt(channels) rounded to float32, the JAX package's constant
-    (``jnp.sqrt(jnp.float32(C))``), whatever the dtype of the scores."""
-    return torch.tensor(channels, dtype=torch.float32).sqrt().item()
 
 
 class WeightNetHidden(nn.Module):
@@ -65,7 +61,7 @@ class SampleWeights(nn.Module):
         super().__init__()
         self.scaled = scaled
         self.bottleneck = max(32, in_channels // 2)
-        self.scale = _attention_scale(self.bottleneck)
+        self.scale = attention_scale(self.bottleneck)
         feats = 3 + in_channels
         self.conv_kv_ds = PointConv(feats, self.bottleneck * 2, bn=bn, activation=None,
                                     generator=generator)
@@ -129,15 +125,19 @@ class PointNonLocalCell(nn.Module):
     (utils/pointasnl_util.py:175-219), dense ``mode="dot"``: K/V from the
     ``in_channels`` features of all points, Q from the ``query_channels``
     features of the sampled set, softmax(QK^T / sqrt(bottleneck)) V, then the
-    output projection."""
+    output projection. With ``kv_block_size`` the attention streams K/V in
+    blocks of that size (``blockwise_attention``): O(M * block) memory
+    instead of the (M, N) map, for whole scenes."""
 
     def __init__(self, in_channels: int, query_channels: int, bottleneck: int,
                  out_channels: int, *, bn: bool = True, scaled: bool = True,
+                 kv_block_size: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.bottleneck = bottleneck
         self.scaled = scaled
-        self.scale = _attention_scale(bottleneck)
+        self.kv_block_size = kv_block_size
+        self.scale = attention_scale(bottleneck)
         self.conv_kv = PointConv(in_channels, bottleneck * 2, bn=bn, activation=None,
                                  generator=generator)
         self.conv_query = PointConv(query_channels, bottleneck, bn=bn, activation=None,
@@ -151,6 +151,9 @@ class PointNonLocalCell(nn.Module):
         q = self.conv_query(query_feature, bn_momentum=bn_momentum)
         k = kv[..., : self.bottleneck]  # (B, N, bc)
         v = kv[..., self.bottleneck:]
+        if self.kv_block_size is not None:
+            out = blockwise_attention(q, k, v, block_size=self.kv_block_size, scaled=self.scaled)
+            return self.conv_back_project(out, bn_momentum=bn_momentum)
         attn = torch.einsum("bmc,bnc->bmn", q, k)
         if self.scaled:
             attn = attn / self.scale
@@ -170,12 +173,14 @@ class PointASNLSetAbstraction(nn.Module):
     the non-local queries are the input features. Flax creates the
     parameters at the first call, where N is known; the port creates them at
     construction, so it has to be told which of the two cells it is.
+    ``nl_kv_block_size`` streams the non-local cell's K/V in blocks.
     """
 
     def __init__(self, in_channels: int, npoint: Optional[int], nsample: int,
                  mlp: Sequence[int], *, as_neighbor: int = 8, NL: bool = True,
                  bn: bool = True, use_knn: bool = True, radius: Optional[float] = None,
-                 downsample: bool = True, generator: Optional[torch.Generator] = None):
+                 downsample: bool = True, nl_kv_block_size: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.npoint = npoint
         self.nsample = nsample
@@ -193,7 +198,8 @@ class PointASNLSetAbstraction(nn.Module):
         if NL:
             query_channels = group_channels if downsample else in_channels
             self.add_module("nonlocal", PointNonLocalCell(
-                in_channels, query_channels, max(32, in_channels // 2), out, bn=bn, generator=g))
+                in_channels, query_channels, max(32, in_channels // 2), out, bn=bn,
+                kv_block_size=nl_kv_block_size, generator=g))
         self.skip = PointConv(point_channels, out, bn=bn, generator=g)
         self.local_convs = []
         width = point_channels

@@ -55,14 +55,18 @@ def _digest(sources) -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pasnl_fps.argtypes = [p, p, i, i, i, p]
-    lib.pasnl_fps.restype = i
+    for name in ("pasnl_fps", "pasnl_fps_cluster"):
+        getattr(lib, name).argtypes = [p, p, i, i, i, p]
+        getattr(lib, name).restype = i
     lib.pasnl_knn.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.pasnl_knn.restype = i
     lib.pasnl_ball_query.argtypes = [p, p, p, p, i, i, i, i, f, p]
     lib.pasnl_ball_query.restype = i
-    for name in ("pasnl_fps_max_n", "pasnl_knn_max_n", "pasnl_knn_max_k",
-                 "pasnl_ball_query_max_n", "pasnl_ball_query_max_nsample"):
+    lib.pasnl_knn_spatial.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.pasnl_knn_spatial.restype = i
+    for name in ("pasnl_fps_max_n", "pasnl_fps_cluster_max_n", "pasnl_knn_max_n",
+                 "pasnl_knn_max_k", "pasnl_ball_query_max_n", "pasnl_ball_query_max_nsample",
+                 "pasnl_knn_spatial_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.pasnl_error_string.argtypes = [i]

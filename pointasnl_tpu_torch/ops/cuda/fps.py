@@ -1,7 +1,9 @@
 """Farthest point sampling on the card: the wrapper of ``csrc/fps.cu``.
 
 Replaces ``pointasnl_tpu/ops/pallas/fps.py`` (``_fps_kernel``). The plain
-version it is held against is ``ops.geometry.farthest_point_sample``.
+version it is held against is ``ops.geometry.farthest_point_sample``. Two
+designs, routed by N: one block a cloud up to N = 10240, a cluster of 8
+blocks a cloud up to N = 131072 (whole scenes).
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ import torch
 
 from pointasnl_tpu_torch.ops.cuda import _build
 
-launches = 0  # kernel launches made by this process
+launches = 0  # kernel launches made by this process, of either design
 
 
 def farthest_point_sample(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
@@ -21,17 +23,17 @@ def farthest_point_sample(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
                          f"{tuple(xyz.shape)} {xyz.dtype} on {xyz.device}")
     B, N, _ = xyz.shape
     lib = _build.library()
-    max_n = lib.pasnl_fps_max_n()
+    max_n = lib.pasnl_fps_cluster_max_n()
     if not 1 <= N <= max_n or npoint < 1:
         raise ValueError(f"fps kernel takes 1 <= N <= {max_n} and npoint >= 1, "
                          f"got N={N}, npoint={npoint}")
+    launch = lib.pasnl_fps if N <= lib.pasnl_fps_max_n() else lib.pasnl_fps_cluster
     xyz = xyz.detach().contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0:
         return out
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.pasnl_fps(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream),
-                     "fps kernel")
+        _build.check(launch(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream), "fps kernel")
     launches += 1
     return out

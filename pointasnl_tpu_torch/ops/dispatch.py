@@ -3,7 +3,11 @@
   - A CPU tensor goes to the plain PyTorch version (``ops.geometry``).
   - A CUDA tensor goes to the hand-written kernel (``ops.cuda``), or the call
     raises. No switch, environment variable or failed build sends a CUDA
-    tensor to the plain version.
+    tensor to the plain version. The kNN picks its kernel by shape, as
+    ``pointasnl_tpu/ops/pallas/knn.py:knn_point`` does: the resident kernel up
+    to N = 12288, the spatially-pruned one past it up to N = 2^21 with
+    k <= 128, and an error for the rest (the streaming kernel that takes it
+    is not ported yet).
   - Any other device raises.
 
 The gathers are plain index gathers on every device: their backward is
@@ -23,6 +27,11 @@ from pointasnl_tpu_torch.ops import geometry as _g
 from pointasnl_tpu_torch.ops.cuda import ball_query as _cuda_ball
 from pointasnl_tpu_torch.ops.cuda import fps as _cuda_fps
 from pointasnl_tpu_torch.ops.cuda import knn as _cuda_knn
+from pointasnl_tpu_torch.ops.cuda import knn_spatial as _cuda_spatial
+
+# The resident kernel's largest N (knn.py:RESIDENT_MAX_N); past it the
+# spatial kernel.
+RESIDENT_MAX_N = 12288
 
 pairwise_sqdist = _g.pairwise_sqdist
 gather_point = _g.gather_point
@@ -48,9 +57,16 @@ farthest_point_sample.__doc__ = _g.farthest_point_sample.__doc__
 
 
 def knn_point(k, support, query):
-    if _on_cuda(support, "knn_point"):
+    if not _on_cuda(support, "knn_point"):
+        return _g.knn_point(k, support, query)
+    N = support.shape[1]
+    if N <= RESIDENT_MAX_N:
         return _cuda_knn.knn_point(k, support, query)
-    return _g.knn_point(k, support, query)
+    if N <= _cuda_spatial.MAX_N and k <= _cuda_spatial.MAX_K:
+        # The same tensor twice is a self-query: the wrapper sees `query is support`.
+        return _cuda_spatial.knn_point(k, support, query)
+    raise ValueError(f"knn_point on the card: N={N}, k={k} needs the streaming kNN kernel "
+                     f"(pointasnl_tpu/ops/pallas/knn.py:_knn_kernel), which is not ported yet")
 
 
 knn_point.__doc__ = _g.knn_point.__doc__

@@ -84,6 +84,12 @@ def group_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_point(points, idx.reshape(B, M * K)).reshape(B, M, K, points.shape[-1])
 
 
+# Above this many (B * M * N) distance-matrix elements (1 GiB of float32),
+# knn_point switches to knn_point_chunked, which never builds the matrix:
+# whole-scene shapes would otherwise need tens of GB.
+DENSE_KNN_MAX_ELEMENTS = 2 ** 28
+
+
 def knn_point(k: int, support: torch.Tensor, query: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k nearest neighbours by brute force.
 
@@ -97,8 +103,13 @@ def knn_point(k: int, support: torch.Tensor, query: torch.Tensor) -> Tuple[torch
       clamped at >= 0, and int32 support indices. Ties go to the lower support
       index, so a query that lies in the support is its own first neighbour.
       When k > N, the last valid neighbour is repeated to fill k slots.
+      Past DENSE_KNN_MAX_ELEMENTS distances the search is knn_point_chunked,
+      with the same result.
     """
-    N = support.shape[1]
+    B, N, _ = support.shape
+    M = query.shape[1]
+    if B * M * N > DENSE_KNN_MAX_ELEMENTS and N >= k:
+        return knn_point_chunked(k, support, query)
     d2 = pairwise_sqdist(query.detach(), support.detach())
     k_eff = min(k, N)
     dist, idx = torch.sort(d2, dim=-1, stable=True)
@@ -109,6 +120,42 @@ def knn_point(k: int, support: torch.Tensor, query: torch.Tensor) -> Tuple[torch
         dist = torch.cat([dist, dist[..., -1:].expand(*dist.shape[:-1], pad)], dim=-1)
         idx = torch.cat([idx, idx[..., -1:].expand(*idx.shape[:-1], pad)], dim=-1)
     return dist, idx
+
+
+def knn_point_chunked(k: int, support: torch.Tensor, query: torch.Tensor, *,
+                      query_block: int = 4096, support_block: int = 8192
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN with O(B * query_block * support_block) transient memory.
+
+    The contract of knn_point, but the (M, N) distance matrix never exists:
+    each block of queries scans the support in chunks of support_block and
+    merges each chunk into a running top-k. The running list comes before the
+    chunk's candidates, chunks arrive in index order and the sort is stable,
+    so equal distances go to the lower index.
+    """
+    B, N, _ = support.shape
+    M = query.shape[1]
+    if N < k:
+        return knn_point(k, support, query)  # degenerate: the dense path pads
+    support = support.detach().float()
+    query = query.detach().float()
+    sb = min(support_block, N)
+    dists, idxs = [], []
+    for q0 in range(0, M, query_block):
+        q_blk = query[:, q0:q0 + query_block]
+        best_d = q_blk.new_full((B, q_blk.shape[1], k), _FPS_INF)
+        best_i = torch.zeros((B, q_blk.shape[1], k), dtype=torch.long, device=query.device)
+        for s0 in range(0, N, sb):
+            d2 = pairwise_sqdist(q_blk, support[:, s0:s0 + sb])
+            gidx = torch.arange(s0, s0 + d2.shape[-1], device=query.device)
+            cand_d = torch.cat([best_d, d2], dim=-1)
+            cand_i = torch.cat([best_i, gidx.expand(*d2.shape)], dim=-1)
+            best_d, sel = torch.sort(cand_d, dim=-1, stable=True)
+            best_d = best_d[..., :k]
+            best_i = torch.gather(cand_i, -1, sel[..., :k])
+        dists.append(best_d.clamp_min(0.0))
+        idxs.append(best_i.to(torch.int32))
+    return torch.cat(dists, dim=1), torch.cat(idxs, dim=1)
 
 
 def _radius_sq(radius: float) -> float:

@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from pointasnl_tpu_torch import ops
+from pointasnl_tpu_torch.data import surface_scene
 from pointasnl_tpu_torch.models import PointASNLCls, PointASNLSemSegRes
 from pointasnl_tpu_torch.ops import geometry as tg
 from pointasnl_tpu_torch.ops.cuda import ball_query as cuda_ball
 from pointasnl_tpu_torch.ops.cuda import fps as cuda_fps
 from pointasnl_tpu_torch.ops.cuda import knn as cuda_knn
+from pointasnl_tpu_torch.ops.cuda import knn_spatial as cuda_spatial
 from pointasnl_tpu_torch.serve import make_inference_fn
 from pointasnl_tpu_torch.train import (
     TrainState,
@@ -51,8 +53,12 @@ def _cloud(seed, B, N, dup=0):
     (2, 1000, 100, 0),   # N not a multiple of 32
     (2, 512, 200, 256),  # duplicate points
     (2, 300, 1, 0),      # npoint == 1
-    (1, 10240, 1280, 0),  # the largest N the kernel takes
+    (1, 10240, 1280, 0),  # the largest N of the one-block design
     (4, 10240, 1280, 0),  # the seg step's stem: 10240 -> 1280 at B4
+    (2, 10241, 500, 0),   # the smallest N of the cluster design
+    (2, 20000, 2000, 10000),  # duplicate points, across the cluster's blocks
+    (1, 16384, 4096, 0),  # the whole scene's level 2
+    (1, 131072, 16384, 0),  # the whole scene's level 1: the largest N
 ])
 def test_fps_kernel_matches_plain(dev, B, N, npoint, dup):
     x = _cloud(N + npoint, B, N, dup).to(dev)
@@ -138,9 +144,71 @@ def test_ball_query_kernel_matches_plain(dev, case):
         assert 12 not in got_i.tolist()[0][0]
 
 
+def _scene(seed, B, N, extent=6.0):
+    return torch.from_numpy(surface_scene(np.random.RandomState(seed), B, N, extent=extent))
+
+
+def spatial_case(case):
+    """(support, query, k) of a named spatial-kNN case on the CPU; the query
+    is the support itself for a self-query."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    if case == "duplicates":  # ties: the lower index first
+        x = torch.from_numpy(rng.randn(1, 20000, 3).astype(np.float32))
+        x[:, 10000:] = x[:, :10000]
+        return x, x, 16
+    if case == "far from the origin":  # the bounds' cancellation needs the slack
+        x = torch.from_numpy((rng.randn(1, 16484, 3) * 0.05 + 1000.0).astype(np.float32))
+        return x, x, 32
+    if case == "ragged N":  # N not a multiple of the segment width
+        x = _scene(1, 1, 13001)
+        return x, x, 32
+    if case == "gaussian":  # the worst case for pruning
+        x = torch.from_numpy(rng.randn(1, 32768, 3).astype(np.float32))
+        return x, x, 32
+    if case == "B2":
+        x = _scene(2, 2, 20000)
+        return x, x, 32
+    if case == "disjoint":  # queries that are not support points
+        return _scene(3, 1, 30000), _scene(4, 1, 5000), 32
+    if case == "k3 over an eighth":  # three_nn's regime
+        x = _scene(5, 1, 131072)
+        return x[:, ::8].contiguous(), x, 3
+    raise ValueError(case)
+
+
+SPATIAL_CASES = ["duplicates", "far from the origin", "ragged N", "gaussian", "B2", "disjoint",
+                 "k3 over an eighth"]
+
+
+@pytest.mark.parametrize("case", SPATIAL_CASES)
+def test_spatial_knn_kernel_matches_plain(dev, case):
+    support, query, k = spatial_case(case)
+    self_query = query is support
+    support = support.to(dev)
+    query = support if self_query else query.to(dev)
+    got_d, got_i = cuda_spatial.knn_point(k, support, query)
+    want_d, want_i = tg.knn_point(k, support, query)
+    torch.cuda.synchronize()
+    assert got_i.dtype == torch.int32 and got_i.shape == (*query.shape[:2], k)
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_d, want_d, rtol=1e-6, atol=1e-7)
+    if case in ("ragged N", "gaussian", "B2"):  # self-queries without duplicates:
+        # each point is its own first neighbour
+        assert torch.equal(got_i[..., 0].long(), torch.arange(support.shape[1], device=dev)
+                           .expand(support.shape[0], -1))
+
+
+def test_spatial_knn_prunes_a_scene(dev):
+    """On a surface scene the kernel tests a small share of the pairs; on
+    the same scene it tests every pair it must (the exact result)."""
+    x = _scene(6, 1, 65536, extent=6.0 / 2 ** 0.5).to(dev)
+    tested = cuda_spatial.pairs_tested(32, x, x)
+    assert 0 < tested < 0.1 * 65536 ** 2
+
+
 def test_kernels_refuse_sizes_beyond_their_limits(dev):
-    with pytest.raises(ValueError, match="N <= 10240"):
-        cuda_fps.farthest_point_sample(8, torch.zeros(1, 10241, 3, device=dev))
+    with pytest.raises(ValueError, match="N <= 131072"):
+        cuda_fps.farthest_point_sample(8, torch.zeros(1, 131073, 3, device=dev))
     with pytest.raises(ValueError, match="N <= 12288"):
         cuda_knn.knn_point(8, torch.zeros(1, 12289, 3, device=dev), torch.zeros(1, 4, 3, device=dev))
     with pytest.raises(ValueError, match="k <= 128"):
@@ -148,16 +216,38 @@ def test_kernels_refuse_sizes_beyond_their_limits(dev):
     with pytest.raises(ValueError, match="nsample <= 128"):
         cuda_ball.query_ball_point(0.1, 129, torch.zeros(1, 200, 3, device=dev),
                                    torch.zeros(1, 4, 3, device=dev))
+    big = torch.zeros(1, 2 ** 21 + 1, 3, device=dev)
+    with pytest.raises(ValueError, match="k <= 128"):
+        cuda_spatial.knn_point(129, big[:, :20000], big[:, :4])
+    with pytest.raises(ValueError, match=r"N <= 2097152"):
+        cuda_spatial.knn_point(8, big, big[:, :4])
+    # Past the spatial kernel's range a search needs the streaming kernel.
+    for k, support in ((8, big), (129, big[:, :20000])):
+        with pytest.raises(ValueError, match="streaming kNN kernel"):
+            ops.knn_point(k, support, big[:, :4])
+
+
+def _counts():
+    return cuda_fps.launches, cuda_knn.launches, cuda_spatial.launches, cuda_ball.launches
+
+
+def _launched(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernels(dev):
     x = _cloud(1, 2, 256).to(dev)
-    fps0, knn0, ball0 = cuda_fps.launches, cuda_knn.launches, cuda_ball.launches
+    before = _counts()
     ops.farthest_point_sample(16, x)
     ops.knn_point(8, x, x[:, :16])
     ops.query_ball_point(0.2, 8, x, x[:, :16])
-    assert (cuda_fps.launches - fps0, cuda_knn.launches - knn0,
-            cuda_ball.launches - ball0) == (1, 1, 1)
+    assert _launched(before) == (1, 1, 0, 1)
+    big = _cloud(2, 1, 12289).to(dev)  # past the resident kernel's N
+    before = _counts()
+    got = ops.knn_point(8, big, big)  # a self-query
+    assert _launched(before) == (0, 0, 1, 0)
+    for g, w in zip(got, tg.knn_point(8, big, big)):
+        assert torch.equal(g, w)
 
 
 def test_cls_forward_launches_each_kernel_twice_a_request(dev):
@@ -170,10 +260,6 @@ def test_cls_forward_launches_each_kernel_twice_a_request(dev):
     torch.cuda.synchronize()
     assert logits.shape == (2, 40) and bool(torch.isfinite(logits).all())
     assert (cuda_fps.launches - fps0, cuda_knn.launches - knn0) == (2, 2)
-
-
-def _counts():
-    return cuda_fps.launches, cuda_knn.launches, cuda_ball.launches
 
 
 def test_seg_train_step_and_forward_launch_counts(dev):
@@ -191,10 +277,24 @@ def test_seg_train_step_and_forward_launch_counts(dev):
     before = _counts()
     metrics = step(state, batch)
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_counts(), before)) == (4, 11, 1)
+    assert _launched(before) == (4, 11, 0, 1)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     before = _counts()
     logits = make_inference_fn(model)(batch["points"])
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_counts(), before)) == (4, 11, 0)
+    assert _launched(before) == (4, 11, 0, 0)
     assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())
+
+
+def test_whole_scene_forward_launch_counts(dev):
+    """At B1 x 24576 the stem's self-kNN takes the spatial kernel and the
+    level-1 FPS the cluster design: FPS 4, spatial 1, resident 6 + 4
+    (three_nn), no ball query."""
+    model = PointASNLSemSegRes(21, nl_kv_block_size=4096,
+                               generator=torch.Generator().manual_seed(0), device=dev)
+    x = _scene(7, 1, 24576, extent=6.0 * (24576 / 131072) ** 0.5).to(dev)
+    before = _counts()
+    logits = make_inference_fn(model)(x)
+    torch.cuda.synchronize()
+    assert _launched(before) == (4, 10, 1, 0)
+    assert logits.shape == (1, 24576, 21) and bool(torch.isfinite(logits).all())

@@ -25,6 +25,7 @@ from pointasnl_tpu_torch.ops import geometry as tg
 from pointasnl_tpu_torch.ops.cuda import ball_query as cuda_ball
 from pointasnl_tpu_torch.ops.cuda import fps as cuda_fps
 from pointasnl_tpu_torch.ops.cuda import knn as cuda_knn
+from pointasnl_tpu_torch.ops.cuda import knn_spatial as cuda_spatial
 
 torch.set_num_threads(1)
 
@@ -277,3 +278,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda_knn.knn_point(4, x, x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_ball.query_ball_point(0.1, 4, x, x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_spatial.knn_point(4, x, x)
