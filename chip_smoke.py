@@ -49,6 +49,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
      window over 3 train steps (device-busy share, device time by kernel,
      the kernels' share of the step); the whole-scene request (p50, p90,
      points/s) and a profiler window over 2 requests.
+ 11. Slice 4, flash attention: the forward and backward kernels against
+     their plain versions on the card (o and lse, dq, dk and dv within
+     FLASH_RTOL and FLASH_GRAD_RTOL, below) at the seg step's four non-local
+     levels, cls's two layers and edge cases, and one forward past the TPU
+     kernel's VMEM envelope; then ``PointASNLSemSegRes(21,
+     nl_use_flash=True)`` takes 3 train steps at B4 x 10240 and answers 2
+     requests, as in phase 6: a step must launch the flash forward 4 and
+     backward 4 times beside phase 6's counts, a request the forward 4 times
+     and no backward; then phase 7's card-against-CPU step under the flag.
+     Timing adds the flash kernels at the path's shapes (device, call, plain
+     and bound ms, and F.scaled_dot_product_attention's ms as a yardstick:
+     forward, and forward with backward), the flash step and serve forward
+     (p50, p90, timed in turns with phase 10's dense ones) and a profiler
+     window over 3 flash steps.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
@@ -87,6 +101,13 @@ KERNELS = {  # "symbol": what the kernel's name holds in a profiler trace
     "knn_spatial": {"source": "pointasnl_tpu_torch/csrc/knn_spatial.cu",
                     "replaces": "pointasnl_tpu/ops/pallas/knn_spatial.py:122",
                     "symbol": "knn_spatial_kernel"},
+    "flash_fwd": {"source": "pointasnl_tpu_torch/csrc/flash_attention.cu",
+                  "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:90",
+                  "symbol": "flash_fwd_kernel"},
+    # One backward call runs two CUDA kernels: dQ, then dK and dV.
+    "flash_bwd": {"source": "pointasnl_tpu_torch/csrc/flash_attention.cu",
+                  "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:170",
+                  "symbol": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")},
 }
 FPS_CLUSTER_SYMBOL = "fps_cluster_kernel"  # the scene-scale design of csrc/fps.cu
 # (B, N, npoint) and (B, N support, M query, k) of slice 1's two SA layers.
@@ -130,6 +151,35 @@ SCENE_LEVELS = [SCENE_N, SCENE_N // 8, SCENE_N // 32, SCENE_N // 128, SCENE_N //
 # the argmax must agree.
 SCENE_CMP_N, SCENE_CMP_SEEDS, SCENE_LOGIT_RTOL = 24576, (20, 21), 1e-4
 SCENE_FLIP_SHARE, SCENE_FLIP_CAP = 0.999, 10.0
+
+# Slice 4: flash attention. (B, M queries, N keys, C, D) of the seg step's
+# four non-local cells under nl_use_flash (C = D = max(32, C_in // 2)).
+FLASH_SEG = [(SEG_B, SEG_N // 8, SEG_N, 32, 32), (SEG_B, SEG_N // 32, SEG_N // 8, 32, 32),
+             (SEG_B, SEG_N // 128, SEG_N // 32, 64, 64), (SEG_B, SEG_N // 256, SEG_N // 128, 128, 128)]
+# The kernel checks: (B, M, N, C, D, scaled, q multiplier), the seg levels,
+# cls's two layers (B8), then edge cases; and one forward-only case past the
+# TPU kernel's VMEM envelope, which the port does not keep.
+FLASH_CASES = {
+    **{f"seg level {i + 1}": (*shape, True, 1.0) for i, shape in enumerate(FLASH_SEG)},
+    "cls layer 1": (8, 512, 1024, 32, 32, True, 1.0),
+    "cls layer 2": (8, 128, 512, 64, 64, True, 1.0),
+    "N 1": (2, 50, 1, 32, 32, True, 1.0),
+    "N 1025 (a chunk and a key)": (2, 100, 1025, 32, 32, True, 1.0),
+    "N 2049 (two chunks and a key)": (2, 100, 2049, 32, 32, True, 1.0),
+    "M 1": (2, 1, 300, 32, 32, True, 1.0),
+    "M 77 (not a multiple of a tile)": (2, 77, 300, 64, 64, True, 1.0),
+    "C = D = 128 at N 10240": (1, 64, 10240, 128, 128, True, 1.0),
+    "scaled=False": (2, 100, 500, 32, 32, False, 1.0),
+    "q x 30 (the max moves across chunks)": (2, 100, 3000, 32, 32, True, 30.0),
+    "B 1": (1, 300, 700, 32, 32, True, 1.0),
+}
+FLASH_FWD_ONLY = {"past the TPU's envelope, N 131072": (1, 512, 131072, 32, 32, True, 1.0)}
+# |kernel - plain| may be at most FLASH_RTOL (o, lse) or FLASH_GRAD_RTOL
+# (dq, dk, dv) of the quantity's largest |value|, plus YARDSTICK times the
+# plain version's own distance from float64 dense attention: both sides are
+# float32 with sums in other orders, and at q x 30 the scores reach ~1e2,
+# whose float32 rounding moves p by ~1e-5 relative.
+FLASH_RTOL, FLASH_GRAD_RTOL = 1e-5, 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
 # HBM bandwidth, for each kernel's bound.
@@ -188,10 +238,11 @@ def in_turns(plain, kernel, timing=LIGHT, plain_timing=None):
     return statistics.median(k), statistics.median(p)
 
 
-def device_ms(fn, kernel: str, calls: int = 10):
-    """Median device time (ms) of one launch of `kernel` (a substring of its
-    name) over `calls` calls of fn, from torch.profiler; None where the
-    profiler records no such launch."""
+def device_ms(fn, kernels, calls: int = 10):
+    """Median device time (ms) of one launch of each of `kernels` (a
+    substring of a CUDA kernel's name, or a tuple of them for a call that
+    launches several) over `calls` calls of fn, summed, from torch.profiler;
+    None where the profiler records no launch of one of them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -200,11 +251,16 @@ def device_ms(fn, kernel: str, calls: int = 10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    if 0 < len(times) < calls:
-        print(f"profiler: {len(times)} of {calls} launches of {kernel} recorded")
-    return statistics.median(times) / 1e3 if times else None
+    total = 0.0
+    for kernel in (kernels,) if isinstance(kernels, str) else kernels:
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if 0 < len(times) < calls:
+            print(f"profiler: {len(times)} of {calls} launches of {kernel} recorded")
+        if not times:
+            return None
+        total += statistics.median(times) / 1e3
+    return total
 
 
 def bound(nbytes: float, ops: float):
@@ -222,6 +278,18 @@ def fps_bound(B, N, npoint):
 def knn_bound(B, N, M, k):
     # Every pair's distance (8 operations) and one compare to select.
     return bound(B * (N + M) * 12 + B * M * k * 8, B * M * N * 9)
+
+
+def flash_fwd_bound(B, M, N, C, D):
+    # q, k, v in, o and lse out; the two products, 2 M N (C + D) a batch.
+    return bound(B * (M * C + N * (C + D) + M * D + M) * 4, 2 * B * M * N * (C + D))
+
+
+def flash_bwd_bound(B, M, N, C, D):
+    # q, k, v, o, dO and lse in, dq, dk, dv out; s and dO v^T recomputed,
+    # then dQ, dK and dV: 2 M N (3C + 2D) a batch.
+    return bound(B * (2 * M * C + 2 * M * D + M + 2 * N * (C + D)) * 4,
+                 2 * B * M * N * (3 * C + 2 * D))
 
 
 def ball_bound(N, M, B, nsample, idx, cnt):
@@ -395,16 +463,18 @@ def layer_indices(xyz: torch.Tensor, npoint: int, k: int):
 
 
 def counts():
-    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial
+    from pointasnl_tpu_torch.ops.cuda import ball_query, flash_attention, fps, knn, knn_spatial
 
     return {"fps": fps.launches, "knn_resident": knn.launches, "ball_query": ball_query.launches,
-            "knn_spatial": knn_spatial.launches}
+            "knn_spatial": knn_spatial.launches, "flash_fwd": flash_attention.fwd_launches,
+            "flash_bwd": flash_attention.bwd_launches}
 
 
 def reset_counts():
-    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial
+    from pointasnl_tpu_torch.ops.cuda import ball_query, flash_attention, fps, knn, knn_spatial
 
     fps.launches = knn.launches = ball_query.launches = knn_spatial.launches = 0
+    flash_attention.fwd_launches = flash_attention.bwd_launches = 0
 
 
 def phase_cls(dev):
@@ -424,7 +494,7 @@ def phase_cls(dev):
     launches = counts()
     print(f"cls slice: {REQUESTS} requests of B{BATCH}x{NUM_POINT}; launches {launches}")
     if launches != {"fps": 2 * REQUESTS, "knn_resident": 2 * REQUESTS, "ball_query": 0,
-                    "knn_spatial": 0}:
+                    "knn_spatial": 0, "flash_fwd": 0, "flash_bwd": 0}:
         raise RuntimeError(f"cls launches {launches}, expected 2 FPS and 2 kNN a request")
 
     for r, (x, out) in enumerate(zip(clouds, logits)):
@@ -483,13 +553,17 @@ def capture_l1_xyz(model, store: list):
     return model.layer1_1.register_forward_hook(lambda m, a, out: store.append(out[0].detach()))
 
 
-def phase_seg(dev):
+def phase_seg(dev, flash: bool = False):
+    """Slice 2's seg train steps and requests, or slice 4's under
+    nl_use_flash (`flash`), which launch the flash forward once for each
+    non-local level, and in a train step the backward too."""
     from pointasnl_tpu_torch import ops
     from pointasnl_tpu_torch.models import PointASNLSemSegRes
     from pointasnl_tpu_torch.serve import make_inference_fn
 
-    model = PointASNLSemSegRes(SEG_CLASSES, generator=torch.Generator().manual_seed(SEED),
-                               device=dev)
+    label = "flash seg" if flash else "seg"
+    model = PointASNLSemSegRes(SEG_CLASSES, nl_use_flash=flash,
+                               generator=torch.Generator().manual_seed(SEED), device=dev)
     n_params = sum(p.numel() for p in model.parameters())
     state, step = seg_trainer(model, SEG_B)
     batches = [seg_batch(200 + s, SEG_B, SEG_N, SEG_SIDE, dev) for s in range(SEG_STEPS)]
@@ -501,12 +575,14 @@ def phase_seg(dev):
     torch.cuda.synchronize()
     launches = counts()
     hook.remove()
-    print(f"seg slice: PointASNLSemSegRes({SEG_CLASSES}), {n_params} parameters; "
-          f"{SEG_STEPS} train steps of B{SEG_B}x{SEG_N}; launches {launches}")
+    print(f"{label} slice: PointASNLSemSegRes({SEG_CLASSES}, nl_use_flash={flash}), {n_params} "
+          f"parameters; {SEG_STEPS} train steps of B{SEG_B}x{SEG_N}; launches {launches}")
+    nl = 4 * flash
     if launches != {"fps": 4 * SEG_STEPS, "knn_resident": 11 * SEG_STEPS,
-                    "ball_query": SEG_STEPS, "knn_spatial": 0}:
-        raise RuntimeError(f"seg train launches {launches}, expected FPS 4, kNN 11 and "
-                           f"ball query 1 a step")
+                    "ball_query": SEG_STEPS, "knn_spatial": 0, "flash_fwd": nl * SEG_STEPS,
+                    "flash_bwd": nl * SEG_STEPS}:
+        raise RuntimeError(f"{label} train launches {launches}, expected FPS 4, kNN 11, "
+                           f"ball query 1, flash forward {nl} and backward {nl} a step")
     for s, m in enumerate(metrics):
         m = {k: float(v) for k, v in m.items()}
         print(f"step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in m.items()))
@@ -515,7 +591,7 @@ def phase_seg(dev):
     mean_cnt = statistics.mean(
         float(ops.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, x, x)[1].float().mean())
         for x in l1)
-    print(f"seg slice: mean in-ball count on l1_xyz {mean_cnt:.3f} (r {REPULSION_RADIUS}, "
+    print(f"{label} slice: mean in-ball count on l1_xyz {mean_cnt:.3f} (r {REPULSION_RADIUS}, "
           f"nsample {REPULSION_NSAMPLE})")
     if not mean_cnt > 1.0:
         raise RuntimeError("the repulsion term is degenerate: the balls hold only their point")
@@ -526,15 +602,17 @@ def phase_seg(dev):
     logits = [infer(x) for x in clouds]
     torch.cuda.synchronize()
     serve_launches = counts()
-    print(f"seg serve: {SEG_REQUESTS} requests of B{SEG_B}x{SEG_N}; launches {serve_launches}")
+    print(f"{label} serve: {SEG_REQUESTS} requests of B{SEG_B}x{SEG_N}; launches "
+          f"{serve_launches}")
     if serve_launches != {"fps": 4 * SEG_REQUESTS, "knn_resident": 11 * SEG_REQUESTS,
-                          "ball_query": 0, "knn_spatial": 0}:
-        raise RuntimeError(f"seg serve launches {serve_launches}, expected FPS 4, kNN 11 and "
-                           f"no ball query a request")
+                          "ball_query": 0, "knn_spatial": 0, "flash_fwd": nl * SEG_REQUESTS,
+                          "flash_bwd": 0}:
+        raise RuntimeError(f"{label} serve launches {serve_launches}, expected FPS 4, kNN 11, "
+                           f"flash forward {nl} and no ball query or flash backward a request")
     for r, out in enumerate(logits):
         if out.shape != (SEG_B, SEG_N, SEG_CLASSES) or not bool(torch.isfinite(out).all()):
-            raise RuntimeError(f"seg request {r}: logits {tuple(out.shape)} not all finite")
-    print(f"seg serve: logits {tuple(logits[0].shape)} finite")
+            raise RuntimeError(f"{label} request {r}: logits {tuple(out.shape)} not all finite")
+    print(f"{label} serve: logits {tuple(logits[0].shape)} finite")
     return state, step, infer, launches, serve_launches
 
 
@@ -550,15 +628,18 @@ def _yardstick(what: str, card, cpu, cpu64, scale: float) -> float:
     return err / limit
 
 
-def phase_card_vs_cpu(dev):
+def phase_card_vs_cpu(dev, flash: bool = False):
+    """One seg train step on the card against the CPU's, dense or under
+    nl_use_flash (`flash`). The CPU's float64 step still runs its flash
+    attention in float32 inside, as JAX's does."""
     from pointasnl_tpu_torch.models import PointASNLSemSegRes
 
-    card = PointASNLSemSegRes(SEG_CLASSES, dropout_keep=1.0,
+    card = PointASNLSemSegRes(SEG_CLASSES, dropout_keep=1.0, nl_use_flash=flash,
                               generator=torch.Generator().manual_seed(SEED + 1), device=dev)
     sd = {k: v.cpu() for k, v in card.state_dict().items()}
     cpus = {}
     for dtype in (torch.float32, torch.float64):
-        m = PointASNLSemSegRes(SEG_CLASSES, dropout_keep=1.0, device="cpu")
+        m = PointASNLSemSegRes(SEG_CLASSES, dropout_keep=1.0, nl_use_flash=flash, device="cpu")
         m.load_state_dict(sd)
         cpus[dtype] = m.to(dtype)
     batch = seg_batch(400, CMP_B, CMP_N, CMP_SIDE, dev)
@@ -578,7 +659,7 @@ def phase_card_vs_cpu(dev):
                       "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
                       "state": {k: v.cpu() for k, v in model.state_dict().items()},
                       "l1_xyz": l1[0]}
-        print(f"card vs cpu: {name} step in {time.perf_counter() - t0:.2f} s")
+        print(f"card vs cpu{' (flash)' * flash}: {name} step in {time.perf_counter() - t0:.2f} s")
 
     x = batch["points"]
     for what, a, b in zip(("fps", "knn"), layer_indices(x, CMP_N // 8, 32),
@@ -604,10 +685,11 @@ def phase_card_vs_cpu(dev):
     bn_ratio = max(_yardstick(f"BN {k}", c["state"][k], p["state"][k], p64["state"][k],
                               max(float(p64["state"][k].abs().max()), 1.0))
                    for k in c["state"] if k.endswith((".mean", ".var")))
-    print("card vs cpu, B2x2048 train step: " + ", ".join(
+    print(f"card vs cpu, B2x2048 train step, nl_use_flash={flash}: " + ", ".join(
         f"{k} card {float(c['metrics'][k]):.7f} cpu {float(p['metrics'][k]):.7f} "
         f"cpu64 {float(p64['metrics'][k]):.7f}" for k in c["metrics"]))
-    print(f"card vs cpu: layer-1 FPS and kNN indices exact; level-2 indices differing: "
+    print(f"card vs cpu{' (flash)' * flash}: layer-1 FPS and kNN indices exact; level-2 "
+          f"indices differing: "
           f"fps {l2[0]}, knn {l2[1]}; worst error / limit: loss terms "
           f"{max(worst.values()):.3f}, gradients {g_ratio:.3f}, BN stats {bn_ratio:.3f} "
           f"(limit {YARDSTICK:g} x |cpu - cpu64| + {FLOOR_RTOL:g} x scale)")
@@ -719,7 +801,7 @@ def phase_scene(dev):
           f"{SCENE_BLOCK}); launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want = {"fps": 4 * SCENE_REQUESTS, "knn_resident": 8 * SCENE_REQUESTS, "ball_query": 0,
-            "knn_spatial": 3 * SCENE_REQUESTS}
+            "knn_spatial": 3 * SCENE_REQUESTS, "flash_fwd": 0, "flash_bwd": 0}
     if launches != want:
         raise RuntimeError(f"whole-scene launches {launches}, expected FPS 4, spatial kNN 3, "
                            f"resident kNN 8 and no ball query a request")
@@ -788,6 +870,66 @@ def phase_scene_card_vs_cpu(dev):
                            f"on the scenes of seeds {failed}")
 
 
+def flash_inputs(name: str, B, M, N, C, D, qmul, dev):
+    """q (times qmul), k, v and an upstream gradient dO of a flash case."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+                   for shape in ((B, M, C), (B, N, C), (B, N, D), (B, M, D)))
+    return q * qmul, k, v, do
+
+
+def dense64(q, k, v, do, scale: float):
+    """Dense float64 attention, its logsumexp and (with do) its gradients."""
+    q, k, v = (t.double().requires_grad_(do is not None) for t in (q, k, v))
+    s = torch.einsum("bmc,bnc->bmn", q, k) * scale
+    o = torch.einsum("bmn,bnd->bmd", torch.softmax(s, dim=-1), v)
+    grads = torch.autograd.grad(o, (q, k, v), do.double()) if do is not None else None
+    return o.detach(), torch.logsumexp(s, dim=-1).detach(), grads
+
+
+def flash_close(what: str, got, plain, ref64, rtol: float) -> float:
+    """Check |kernel - plain| against rtol of the scale plus YARDSTICK times
+    the plain version's distance from float64; return the error."""
+    f32 = float((plain.double() - ref64).abs().max())
+    limit = rtol * float(ref64.abs().max()) + YARDSTICK * f32
+    err = float((got.double() - plain.double()).abs().max())
+    if not err <= limit:
+        raise RuntimeError(f"flash {what}: |kernel - plain| {err:.3e} over its limit {limit:.3e}")
+    return err
+
+
+def phase_flash(dev):
+    """The flash kernels against their plain versions: the largest |kernel -
+    plain| of the forward (o, lse) and of the backward (dq, dk, dv)."""
+    from pointasnl_tpu_torch.ops import flash_attention as fa
+    from pointasnl_tpu_torch.ops.cuda import flash_attention as cuda_flash
+
+    worst = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    cases = [(n, c, True) for n, c in FLASH_CASES.items()]
+    cases += [(n, c, False) for n, c in FLASH_FWD_ONLY.items()]
+    for name, (B, M, N, C, D, scaled, qmul), backward in cases:
+        scale = fa.flash_scale(C, scaled)
+        q, k, v, do = flash_inputs(name, B, M, N, C, D, qmul, dev)
+        o, lse = cuda_flash.flash_forward(q, k, v, scale)
+        po, plse = fa.flash_forward_reference(q, k, v, scale)
+        if backward:
+            grads = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
+            pgrads = fa.flash_backward_reference(q, k, v, po, plse, do, scale)
+        torch.cuda.synchronize()
+        o64, lse64, g64 = dense64(q, k, v, do if backward else None, scale)
+        errs = {"o": flash_close(f"{name} o", o, po, o64, FLASH_RTOL),
+                "lse": flash_close(f"{name} lse", lse, plse, lse64, FLASH_RTOL)}
+        worst["flash_fwd"] = max(worst["flash_fwd"], errs["o"], errs["lse"])
+        if backward:
+            for what, got, plain, ref in zip(("dq", "dk", "dv"), grads, pgrads, g64):
+                errs[what] = flash_close(f"{name} {what}", got, plain, ref, FLASH_GRAD_RTOL)
+                worst["flash_bwd"] = max(worst["flash_bwd"], errs[what])
+        print(f"flash {name}, B{B} M{M} N{N} C{C} D{D}: within tolerance; max |kernel - plain| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        del q, k, v, do, o64, g64
+    return worst
+
+
 def spatial_bound(B, N, M, k):
     # Bytes: the clouds in and the rows out, each once. The operations the
     # function needs are its M * k pairs' distances, far below the bytes'
@@ -804,15 +946,16 @@ def time_kernels(dev, card):
     rows = {name: [] for name in KERNELS}
 
     def add(name, path, shape, plain, kernel, bnd, timing=LIGHT, plain_timing=None,
-            symbol=None, **extra):
+            symbol=None, library=None, **extra):
         call_ms, p_ms = in_turns(plain, kernel, timing, plain_timing)
         dev_ms = device_ms(kernel, symbol or KERNELS[name]["symbol"])
         if dev_ms is None:
             print(f"time {name} {shape}: the profiler saw no launch; ms is the call time")
+        lib_ms = statistics.median(time_ms(library, *timing)) if library else None
         rows[name].append({"path": path, "shape": shape,
                            "ms": call_ms if dev_ms is None else dev_ms, "call_ms": call_ms,
                            "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                           "library_ms": None, **extra})
+                           "library_ms": lib_ms, **extra})
 
     for B, N, npoint in FPS_SHAPES:
         x = cloud(11, B, N, dev)
@@ -864,14 +1007,46 @@ def time_kernels(dev, card):
             add("knn_resident", "scene", f"B1 {M}q/{N} k{k}", lambda: geometry.knn_point(k, s, q),
                 lambda: knn.knn_point(k, s, q), knn_bound(1, N, M, k),
                 timing=HEAVY if N * M >= 10**7 else LIGHT)
+    # The flash seg step's four non-local cells; F.scaled_dot_product_attention
+    # at the same shapes is the yardstick (library_ms): the forward, and for
+    # the backward the forward with its backward.
+    from pointasnl_tpu_torch.ops import flash_attention as fa
+    from pointasnl_tpu_torch.ops.cuda import flash_attention as cuda_flash
+
+    for B, M, N, C, D in FLASH_SEG:
+        q, k, v, do = flash_inputs("time", B, M, N, C, D, 1.0, dev)
+        scale = fa.flash_scale(C)
+        o, lse = cuda_flash.flash_forward(q, k, v, scale)
+        timing = HEAVY if M * N >= 10**7 else LIGHT
+
+        def sdpa_fwd_bwd(q=q, k=k, v=v, do=do, scale=scale):
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+            torch.autograd.grad(out, (q, k, v), do)
+
+        shape = f"B{B} {M}q/{N} C{C} D{D}"
+        add("flash_fwd", "seg_flash", shape,
+            lambda q=q, k=k, v=v, s=scale: fa.flash_forward_reference(q, k, v, s),
+            lambda q=q, k=k, v=v, s=scale: cuda_flash.flash_forward(q, k, v, s),
+            flash_fwd_bound(B, M, N, C, D), timing,
+            library=lambda q=q, k=k, v=v, s=scale:
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s))
+        add("flash_bwd", "seg_flash", shape,
+            lambda a=(q, k, v, o, lse, do, scale): fa.flash_backward_reference(*a),
+            lambda a=(q, k, v, o, lse, do, scale): cuda_flash.flash_backward(*a),
+            flash_bwd_bound(B, M, N, C, D), timing, library=sdpa_fwd_bwd)
+
     for name, rs in rows.items():
         for r in rs:
             tested = (f", pairs tested {r['pairs_tested']} ({100 * r['pairs_tested_share']:.3f} % "
                       f"of M x N)" if "pairs_tested" in r else "")
+            lib = (f", F.scaled_dot_product_attention {r['library_ms']:.4f} ms"
+                   f"{' (forward and backward)' if name == 'flash_bwd' else ''}"
+                   if r["library_ms"] is not None else "")
             print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms on the "
                   f"device, {r['call_ms']:.4f} ms a call back to back, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
-                  f"{tested}  [{card}]")
+                  f"{lib}{tested}  [{card}]")
     return rows
 
 
@@ -880,33 +1055,62 @@ def percentiles(samples):
     return statistics.median(s), s[max(int(0.9 * len(s)) - 1, 0)]
 
 
-def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x):
+def time_seg(card, runs: dict, batch) -> dict:
+    """The seg train step and serve forward of each model of `runs` (label:
+    (state, step, infer, profiled launches a step, trace file)), timed in
+    turns (A, B, B, A, 5 samples by CUDA events each time, so 10 a model),
+    then the host wall and peak memory of 5 steps and a profiler window
+    over 3 steps of each. Returns label: (step p50, serve p50)."""
+    pts = batch["points"]
+    order = list(runs) + list(runs)[::-1]
+    steps, serves = {k: [] for k in runs}, {k: [] for k in runs}
+    for label in order:
+        state, step = runs[label][:2]
+        steps[label] += time_ms(lambda: step(state, batch), reps=5, warmup=2)
+    for label in order:
+        infer = runs[label][2]
+        serves[label] += time_ms(lambda: infer(pts), reps=5, warmup=2)
+    out = {}
+    for label, (state, step, _, per_step, trace) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 5 * 1e3
+        (step_p50, step_p90), (serve_p50, serve_p90) = percentiles(steps[label]), percentiles(
+            serves[label])
+        print(f"time {label} train step B{SEG_B}x{SEG_N}: p50 {step_p50:.3f} ms, p90 "
+              f"{step_p90:.3f} ms of 10 (CUDA events, in turns with {' and '.join(runs)}); "
+              f"{wall:.3f} ms host wall; {SEG_B * SEG_N / step_p50 * 1e3:.0f} points/s at p50; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+        print(f"time {label} serve forward B{SEG_B}x{SEG_N}: p50 {serve_p50:.3f} ms, p90 "
+              f"{serve_p90:.3f} ms of 10 (CUDA events, in turns); "
+              f"{SEG_B * SEG_N / serve_p50 * 1e3:.0f} points/s at p50  [{card}]")
+        profile_window(lambda: step(state, batch), 3, per_step, card, f"{label} train steps",
+                       trace)
+        out[label] = step_p50, serve_p50
+    return out
+
+
+def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x,
+               flash_state, flash_step, flash_infer):
     x = cloud(13, BATCH, NUM_POINT, dev)
     fwd, p90 = percentiles(time_ms(lambda: cls_infer(x), reps=50))
     print(f"time cls forward B{BATCH}x{NUM_POINT}: p50 {fwd:.3f} ms, p90 {p90:.3f} ms of 50 "
           f"(CUDA events); {BATCH * NUM_POINT / fwd * 1e3:.0f} points/s at p50  [{card}]")
 
     batch = seg_batch(500, SEG_B, SEG_N, SEG_SIDE, dev)
-    torch.cuda.reset_peak_memory_stats()
-    step_samples = time_ms(lambda: seg_step(seg_state, batch), reps=10, warmup=2)
-    t0 = time.perf_counter()
-    for _ in range(5):
-        seg_step(seg_state, batch)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 5 * 1e3
-    step_p50, step_p90 = percentiles(step_samples)
-    print(f"time seg train step B{SEG_B}x{SEG_N}: p50 {step_p50:.3f} ms, p90 {step_p90:.3f} ms "
-          f"of 10 (CUDA events); {wall:.3f} ms host wall; "
-          f"{SEG_B * SEG_N / step_p50 * 1e3:.0f} points/s at p50; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
-    pts = batch["points"]
-    serve_p50, serve_p90 = percentiles(time_ms(lambda: seg_infer(pts), reps=10, warmup=2))
-    print(f"time seg serve forward B{SEG_B}x{SEG_N}: p50 {serve_p50:.3f} ms, p90 "
-          f"{serve_p90:.3f} ms of 10 (CUDA events); {SEG_B * SEG_N / serve_p50 * 1e3:.0f} "
-          f"points/s at p50  [{card}]")
-    profile_window(lambda: seg_step(seg_state, batch), 3,
-                   {"fps": 4, "knn": 11, "knn_spatial": 0, "ball_query": 1}, card,
-                   "seg train steps", "profile_seg_step.json")
+    dense = {"fps": 4, "knn": 11, "knn_spatial": 0, "ball_query": 1, "flash_fwd": 0,
+             "flash_bwd": 0}
+    # The dense step and the same step under nl_use_flash, in turns; a flash
+    # backward is two CUDA kernels (dQ, then dK and dV).
+    seg = time_seg(card, {
+        "seg": (seg_state, seg_step, seg_infer, dense, "profile_seg_step.json"),
+        "flash seg": (flash_state, flash_step, flash_infer,
+                      {**dense, "flash_fwd": 4, "flash_bwd": 8}, "profile_flash_seg_step.json"),
+    }, batch)
+    (step_p50, serve_p50), (flash_p50, flash_serve_p50) = seg["seg"], seg["flash seg"]
 
     torch.cuda.reset_peak_memory_stats()
     scene_p50, scene_p90 = percentiles(time_ms(lambda: scene_infer(scene_x), reps=10, warmup=1))
@@ -914,15 +1118,18 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
           f"ms of 10 (CUDA events); {SCENE_N / scene_p50 * 1e3:.0f} points/s at p50; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     profile_window(lambda: scene_infer(scene_x), 2,
-                   {"fps": 4, "knn": 8, "knn_spatial": 3, "ball_query": 0}, card,
-                   "whole-scene requests", "profile_whole_scene.json")
+                   {"fps": 4, "knn": 8, "knn_spatial": 3, "ball_query": 0, "flash_fwd": 0,
+                    "flash_bwd": 0}, card, "whole-scene requests", "profile_whole_scene.json")
     return {"cls_forward_ms": fwd, "seg_step_ms": step_p50, "seg_serve_ms": serve_p50,
+            "flash_seg_step_ms": flash_p50, "flash_seg_serve_ms": flash_serve_p50,
             "scene_ms": scene_p50}
 
 
 # Each ported kernel's launches in a profiler trace, by the names they hold.
 PROFILE_SYMBOLS = {"fps": ("fps_kernel", FPS_CLUSTER_SYMBOL), "knn": ("knn_kernel",),
-                   "knn_spatial": ("knn_spatial_kernel",), "ball_query": ("ball_query_kernel",)}
+                   "knn_spatial": ("knn_spatial_kernel",), "ball_query": ("ball_query_kernel",),
+                   "flash_fwd": ("flash_fwd_kernel",),
+                   "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")}
 
 
 def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
@@ -1014,35 +1221,48 @@ def main() -> int:
     scene_infer, scene_x, scene_launches = phase_scene(dev)
     phase_scene_card_vs_cpu(dev)
     mark("slice 3")
+    errs.update(phase_flash(dev))
+    mark("flash kernel checks")
+    flash_state, flash_step, flash_infer, flash_launches, flash_serve_launches = phase_seg(
+        dev, flash=True)
+    phase_card_vs_cpu(dev, flash=True)
+    mark("slice 4")
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     print(f"card before timing: {clocks} = {smi(clocks)}")
     rows = time_kernels(dev, card)
     mark("kernel timing")
-    time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x)
+    time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x,
+               flash_state, flash_step, flash_infer)
     print(f"card after timing: {clocks} = {smi(clocks)}")
     mark("path timing")
     records = []
     for name, meta in KERNELS.items():
-        # ms, call_ms, plain_ms and bound_ms sum the shapes of one call of a
-        # path: the seg train step's, or for the spatial kernel (which that
-        # step never launches) the whole-scene request's.
-        path = "scene" if name == "knn_spatial" else "seg"
+        # ms, call_ms, plain_ms, bound_ms and library_ms sum the shapes of
+        # one call of a path: the seg train step's, for the spatial kernel
+        # (which that step never launches) the whole-scene request's, for
+        # the flash kernels the flash seg train step's.
+        path = {"knn_spatial": "scene", "flash_fwd": "seg_flash",
+                "flash_bwd": "seg_flash"}.get(name, "seg")
         shapes = [r for r in rows[name] if r["path"] == path]
         top = max(shapes, key=lambda r: r["bound_ms"])
         by_path = {"cls_serve": cls_launches[name], "seg_train": seg_launches[name],
-                   "seg_serve": serve_launches[name], "whole_scene": scene_launches[name]}
+                   "seg_serve": serve_launches[name], "whole_scene": scene_launches[name],
+                   "seg_flash_train": flash_launches[name],
+                   "seg_flash_serve": flash_serve_launches[name]}
+        lib = [r["library_ms"] for r in shapes]
         records.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": errs[name],
-            "ms_path": {"seg": "seg_train", "scene": "whole_scene"}[path],
+            "ms_path": {"seg": "seg_train", "scene": "whole_scene",
+                        "seg_flash": "seg_flash_train"}[path],
             "ms": sum(r["ms"] for r in shapes),
             "call_ms": sum(r["call_ms"] for r in shapes),
             "plain_ms": sum(r["plain_ms"] for r in shapes),
             "bound_ms": sum(r["bound_ms"] for r in shapes),
             "bound_by": top["bound_by"],
-            "library_ms": None,
+            "library_ms": None if None in lib else sum(lib),
             "by_shape": rows[name],
         })
     OUT_DIR.mkdir(parents=True, exist_ok=True)

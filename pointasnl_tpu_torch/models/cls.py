@@ -27,20 +27,22 @@ from pointasnl_tpu_torch.nn.pointnet import PointNetSAModule
 class PointASNLCls(nn.Module):
     """Initialised from `generator` (Xavier-uniform kernels, zero biases, BN
     1/0/0/1) on the CPU, then moved to `device`: the card unless the caller
-    passes ``device="cpu"``."""
+    passes ``device="cpu"``. ``nl_kv_block_size`` and ``nl_use_flash`` go to
+    both non-local cells, as in the JAX model; they add no parameters."""
 
     def __init__(self, num_class: int = 40, use_normal: bool = False,
-                 adaptive_sample: bool = False, *,
-                 generator: Optional[torch.Generator] = None,
+                 adaptive_sample: bool = False, *, nl_kv_block_size: Optional[int] = None,
+                 nl_use_flash: bool = False, generator: Optional[torch.Generator] = None,
                  device: torch.device = torch.device("cuda")):
         super().__init__()
         self.use_normal = use_normal
         g = generator
         as_neighbor = (12, 12) if adaptive_sample else (0, 0)
+        nl = {"nl_kv_block_size": nl_kv_block_size, "nl_use_flash": nl_use_flash}
         self.layer1 = PointASNLSetAbstraction(3, 512, 32, (64, 64, 128),
-                                              as_neighbor=as_neighbor[0], generator=g)
+                                              as_neighbor=as_neighbor[0], generator=g, **nl)
         self.layer2 = PointASNLSetAbstraction(128, 128, 64, (128, 128, 256),
-                                              as_neighbor=as_neighbor[1], generator=g)
+                                              as_neighbor=as_neighbor[1], generator=g, **nl)
         self.layer3_1 = PointNetSAModule(128, (128, 256, 512), generator=g)
         self.layer3_2 = PointNetSAModule(256, (256, 512, 1024), generator=g)
         self.fc1 = FullyConnected(1024 + 512, 512, bn=True, generator=g)

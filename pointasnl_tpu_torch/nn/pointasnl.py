@@ -11,12 +11,12 @@ module names and the same reference quirks:
   - the ``bmkc,bmkw->bmcw`` product is flattened channel-major before
     ``after_conv``.
 
-Ported so far: the ``mode="dot"`` non-local cell, dense or with K/V streamed
-in blocks (``kv_block_size``), and the SA cell on both its paths
-(down-sampling, N != npoint, and same-resolution, N == npoint), with kNN or
-ball grouping and the ``fps_idx`` / ``knn_idx`` hints. The concat mode, the
-flash attention, the ``support_*`` decoupling of sharded whole-scene
-inference and the decoding layer wait.
+Ported so far: the ``mode="dot"`` non-local cell, dense, with K/V streamed
+in blocks (``kv_block_size``) or through the flash kernels (``use_flash``),
+and the SA cell on both its paths (down-sampling, N != npoint, and
+same-resolution, N == npoint), with kNN or ball grouping and the
+``fps_idx`` / ``knn_idx`` hints. The concat mode, the ``support_*``
+decoupling of sharded whole-scene inference and the decoding layer wait.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from torch import nn
 from pointasnl_tpu_torch import ops
 from pointasnl_tpu_torch.nn.blockwise import attention_scale, blockwise_attention
 from pointasnl_tpu_torch.nn.layers import PointConv
+from pointasnl_tpu_torch.ops.flash_attention import flash_attention
 
 
 class WeightNetHidden(nn.Module):
@@ -127,16 +128,23 @@ class PointNonLocalCell(nn.Module):
     features of the sampled set, softmax(QK^T / sqrt(bottleneck)) V, then the
     output projection. With ``kv_block_size`` the attention streams K/V in
     blocks of that size (``blockwise_attention``): O(M * block) memory
-    instead of the (M, N) map, for whole scenes."""
+    instead of the (M, N) map, for whole scenes. Otherwise ``use_flash``
+    takes the fused flash attention (``ops.flash_attention``), whose scale
+    multiplies by float32(1 / sqrt(bottleneck)) as JAX's flash path does.
+    The order is JAX's: ``kv_block_size``, then ``use_flash``, then dense.
+    Unlike JAX, ``use_flash`` is never rerouted to blockwise past a VMEM
+    envelope (``fits_vmem``): the CUDA kernels stream K/V from device memory
+    at any N, and the two paths agree to rounding."""
 
     def __init__(self, in_channels: int, query_channels: int, bottleneck: int,
                  out_channels: int, *, bn: bool = True, scaled: bool = True,
-                 kv_block_size: Optional[int] = None,
+                 kv_block_size: Optional[int] = None, use_flash: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.bottleneck = bottleneck
         self.scaled = scaled
         self.kv_block_size = kv_block_size
+        self.use_flash = use_flash
         self.scale = attention_scale(bottleneck)
         self.conv_kv = PointConv(in_channels, bottleneck * 2, bn=bn, activation=None,
                                  generator=generator)
@@ -153,6 +161,9 @@ class PointNonLocalCell(nn.Module):
         v = kv[..., self.bottleneck:]
         if self.kv_block_size is not None:
             out = blockwise_attention(q, k, v, block_size=self.kv_block_size, scaled=self.scaled)
+            return self.conv_back_project(out, bn_momentum=bn_momentum)
+        if self.use_flash:
+            out = flash_attention(q, k, v, self.scaled)
             return self.conv_back_project(out, bn_momentum=bn_momentum)
         attn = torch.einsum("bmc,bnc->bmn", q, k)
         if self.scaled:
@@ -173,14 +184,15 @@ class PointASNLSetAbstraction(nn.Module):
     the non-local queries are the input features. Flax creates the
     parameters at the first call, where N is known; the port creates them at
     construction, so it has to be told which of the two cells it is.
-    ``nl_kv_block_size`` streams the non-local cell's K/V in blocks.
+    ``nl_kv_block_size`` streams the non-local cell's K/V in blocks;
+    ``nl_use_flash`` sends its attention through the flash kernels.
     """
 
     def __init__(self, in_channels: int, npoint: Optional[int], nsample: int,
                  mlp: Sequence[int], *, as_neighbor: int = 8, NL: bool = True,
                  bn: bool = True, use_knn: bool = True, radius: Optional[float] = None,
                  downsample: bool = True, nl_kv_block_size: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 nl_use_flash: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.npoint = npoint
         self.nsample = nsample
@@ -199,7 +211,7 @@ class PointASNLSetAbstraction(nn.Module):
             query_channels = group_channels if downsample else in_channels
             self.add_module("nonlocal", PointNonLocalCell(
                 in_channels, query_channels, max(32, in_channels // 2), out, bn=bn,
-                kv_block_size=nl_kv_block_size, generator=g))
+                kv_block_size=nl_kv_block_size, use_flash=nl_use_flash, generator=g))
         self.skip = PointConv(point_channels, out, bn=bn, generator=g)
         self.local_convs = []
         width = point_channels

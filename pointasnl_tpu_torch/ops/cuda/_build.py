@@ -64,9 +64,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pasnl_ball_query.restype = i
     lib.pasnl_knn_spatial.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.pasnl_knn_spatial.restype = i
+    lib.pasnl_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.pasnl_flash_fwd.restype = i
+    lib.pasnl_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.pasnl_flash_bwd.restype = i
     for name in ("pasnl_fps_max_n", "pasnl_fps_cluster_max_n", "pasnl_knn_max_n",
                  "pasnl_knn_max_k", "pasnl_ball_query_max_n", "pasnl_ball_query_max_nsample",
-                 "pasnl_knn_spatial_tile"):
+                 "pasnl_knn_spatial_tile", "pasnl_flash_max_width"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.pasnl_error_string.argtypes = [i]

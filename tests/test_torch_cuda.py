@@ -6,7 +6,12 @@ so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 Indices must be exactly equal (ball-query counts too); kNN squared distances
-within 1e-6 relative.
+within 1e-6 relative. Flash attention: the kernels and the plain versions
+are both float32 with sums in other orders, so o and lse must agree within
+1e-5 of their scale and dq, dk, dv within 1e-4 of theirs, plus 10 times the
+plain version's own distance from float64 dense attention (which the q x 30
+case needs: its scores reach ~1e2, so their float32 rounding moves p by
+~1e-5 relative).
 """
 
 import numpy as np
@@ -17,7 +22,9 @@ from pointasnl_tpu_torch import ops
 from pointasnl_tpu_torch.data import surface_scene
 from pointasnl_tpu_torch.models import PointASNLCls, PointASNLSemSegRes
 from pointasnl_tpu_torch.ops import geometry as tg
+from pointasnl_tpu_torch.ops import flash_attention as tf
 from pointasnl_tpu_torch.ops.cuda import ball_query as cuda_ball
+from pointasnl_tpu_torch.ops.cuda import flash_attention as cuda_flash
 from pointasnl_tpu_torch.ops.cuda import fps as cuda_fps
 from pointasnl_tpu_torch.ops.cuda import knn as cuda_knn
 from pointasnl_tpu_torch.ops.cuda import knn_spatial as cuda_spatial
@@ -298,3 +305,132 @@ def test_whole_scene_forward_launch_counts(dev):
     torch.cuda.synchronize()
     assert _launched(before) == (4, 10, 1, 0)
     assert logits.shape == (1, 24576, 21) and bool(torch.isfinite(logits).all())
+
+
+# (B, M, N, C, D, scaled, q multiplier) of the flash checks: the seg step's
+# four non-local levels, cls's two layers, then edge cases.
+FLASH_CASES = {
+    "seg level 1": (4, 1280, 10240, 32, 32, True, 1.0),
+    "seg level 2": (4, 320, 1280, 32, 32, True, 1.0),
+    "seg level 3": (4, 80, 320, 64, 64, True, 1.0),
+    "seg level 4": (4, 40, 80, 128, 128, True, 1.0),
+    "cls layer 1": (8, 512, 1024, 32, 32, True, 1.0),
+    "cls layer 2": (8, 128, 512, 64, 64, True, 1.0),
+    "N 1": (2, 50, 1, 32, 32, True, 1.0),
+    "N 1025": (2, 100, 1025, 32, 32, True, 1.0),
+    "N 2049": (2, 100, 2049, 32, 32, True, 1.0),
+    "M 1": (2, 1, 300, 32, 32, True, 1.0),
+    "M 77": (2, 77, 300, 64, 64, True, 1.0),
+    "C 128 N 10240": (1, 64, 10240, 128, 128, True, 1.0),
+    "unscaled": (2, 100, 500, 32, 32, False, 1.0),
+    "q x 30": (2, 100, 3000, 32, 32, True, 30.0),
+    "B 1": (1, 300, 700, 32, 32, True, 1.0),
+    "C 8 D 12": (2, 60, 200, 8, 12, True, 1.0),
+}
+
+
+def flash_inputs(case, dev):
+    B, M, N, C, D, scaled, qmul = FLASH_CASES[case]
+    rng = np.random.RandomState(sum(map(ord, case)))
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+                   for shape in ((B, M, C), (B, N, C), (B, N, D), (B, M, D)))
+    return q * qmul, k, v, do, tf.flash_scale(C, scaled)
+
+
+def _dense64(q, k, v, do, scale):
+    """Dense float64 attention, its logsumexp and its gradients."""
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    s = torch.einsum("bmc,bnc->bmn", q, k) * scale
+    o = torch.einsum("bmn,bnd->bmd", torch.softmax(s, dim=-1), v)
+    grads = torch.autograd.grad(o, (q, k, v), do.double())
+    return o.detach(), torch.logsumexp(s, dim=-1).detach(), grads
+
+
+def _flash_close(what, got, plain, ref64, rtol):
+    scale = float(ref64.abs().max())
+    limit = rtol * scale + 10 * float((plain.double() - ref64).abs().max())
+    err = float((got.double() - plain.double()).abs().max())
+    assert err <= limit, f"{what}: |kernel - plain| {err:.3e} over {limit:.3e}"
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernels_match_plain(dev, case):
+    q, k, v, do, scale = flash_inputs(case, dev)
+    o, lse = cuda_flash.flash_forward(q, k, v, scale)
+    dq, dk, dv = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
+    po, plse = tf.flash_forward_reference(q, k, v, scale)
+    pdq, pdk, pdv = tf.flash_backward_reference(q, k, v, po, plse, do, scale)
+    torch.cuda.synchronize()
+    o64, lse64, grads64 = _dense64(q, k, v, do, scale)
+    assert o.shape == po.shape and lse.shape == plse.shape == q.shape[:2]
+    _flash_close("o", o, po, o64, 1e-5)
+    _flash_close("lse", lse, plse, lse64, 1e-5)
+    for name, got, plain, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), (pdq, pdk, pdv), grads64):
+        assert got.shape == plain.shape
+        _flash_close(name, got, plain, ref, 1e-4)
+
+
+def test_flash_backward_is_deterministic(dev):
+    q, k, v, do, scale = flash_inputs("seg level 2", dev)
+    o, lse = cuda_flash.flash_forward(q, k, v, scale)
+    first = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
+    again = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_past_the_tpu_envelope_forward(dev):
+    """N = 131072 at C = D = 32: past the TPU kernel's VMEM cap, which the
+    port does not keep."""
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rng.randn(1, n, 32).astype(np.float32)).to(dev)
+               for n in (512, 131072, 131072))
+    scale = tf.flash_scale(32)
+    o, lse = cuda_flash.flash_forward(q, k, v, scale)
+    po, plse = tf.flash_forward_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert float((o - po).abs().max()) <= 1e-5 * float(po.abs().max())
+    assert float((lse - plse).abs().max()) <= 1e-5 * float(plse.abs().max())
+
+
+def test_flash_attention_routes_cuda_tensors_to_the_kernels(dev):
+    q, k, v, do, _ = flash_inputs("M 77", dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    f0, b0 = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+    o = tf.flash_attention(q, k, v)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (cuda_flash.fwd_launches - f0, cuda_flash.bwd_launches - b0) == (1, 1)
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape and v.grad.shape == v.shape
+    with pytest.raises(ValueError, match="float32"):
+        tf.flash_attention(q.detach().double(), k.detach().double(), v.detach().double())
+    with pytest.raises(ValueError, match="C, D <= 256"):
+        cuda_flash.flash_forward(torch.zeros(1, 4, 257, device=dev),
+                                 torch.zeros(1, 8, 257, device=dev),
+                                 torch.zeros(1, 8, 32, device=dev), 1.0)
+
+
+def test_flash_seg_train_step_and_forward_launch_counts(dev):
+    """Under nl_use_flash a seg train step launches the flash forward and
+    backward once for each of the four non-local levels; the serve forward
+    launches the forward 4 times and no backward."""
+    model = PointASNLSemSegRes(21, nl_use_flash=True, generator=torch.Generator().manual_seed(0),
+                               device=dev)
+    state = TrainState(model, make_optimizer("adam", staircase_lr_schedule(1e-3, 2, 200000, 0.7),
+                                             model.parameters()))
+    step = make_train_step(bn_schedule=bn_momentum_schedule(2, 200000), task="seg",
+                           uniform_weight=0.01)
+    rng = np.random.RandomState(1)
+    batch = {"points": torch.from_numpy((rng.rand(2, 2048, 3) * 0.5).astype(np.float32)).to(dev),
+             "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
+             "smpw": torch.ones(2, 2048, device=dev)}
+    f0, b0, before = cuda_flash.fwd_launches, cuda_flash.bwd_launches, _counts()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert (cuda_flash.fwd_launches - f0, cuda_flash.bwd_launches - b0) == (4, 4)
+    assert _launched(before) == (4, 11, 0, 1)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    f0, b0 = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+    logits = make_inference_fn(model)(batch["points"])
+    torch.cuda.synchronize()
+    assert (cuda_flash.fwd_launches - f0, cuda_flash.bwd_launches - b0) == (4, 0)
+    assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())

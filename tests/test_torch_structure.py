@@ -61,7 +61,8 @@ def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
     from pointasnl_tpu_torch.ops.cuda import _build
 
     sources = _build._sources()
-    assert [p.name for p in sources] == ["ball_query.cu", "fps.cu", "knn.cu", "knn_spatial.cu"]
+    assert [p.name for p in sources] == ["ball_query.cu", "flash_attention.cu", "fps.cu", "knn.cu",
+                                         "knn_spatial.cu"]
     assert _build.BUILD_ROOT == PKG.parent / "build" / "pointasnl_tpu_torch"
     assert _build._digest(sources) == _build._digest(sources)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
