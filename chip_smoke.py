@@ -43,9 +43,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
      scenes (the stem's self-kNN then takes the spatial kernel): level-1 FPS
      and kNN indices exact; logits within SCENE_LOGIT_RTOL (below).
  10. Timing with CUDA events after warm-up (medians): each kernel and its
-     plain version at all slices' shapes, in turns, and the share of pairs
-     the spatial kernel tests; the B8 x 1024 cls forward; the B4 x 10240
-     train step (p50, p90, points/s) and serve forward; one torch.profiler
+     plain version at all slices' shapes, in turns, the share of pairs
+     the spatial kernel tests, and the streaming kNN on each resident
+     kNN's search (off the path, to compare the two); the B8 x 1024 cls
+     forward; the B4 x 10240 train step (p50, p90, points/s) and serve forward; one torch.profiler
      window over 3 train steps (device-busy share, device time by kernel,
      the kernels' share of the step); the whole-scene request (p50, p90,
      points/s) and a profiler window over 2 requests.
@@ -63,6 +64,26 @@ Phases (any failure raises, and the script exits non-zero with no result):
      forward, and forward with backward), the flash step and serve forward
      (p50, p90, timed in turns with phase 10's dense ones) and a profiler
      window over 3 flash steps.
+ 12. Slice 5, whole-scene serving past 2^21 points: the streaming kNN
+     against its plain version on the card (indices exact, d2 within 1e-6
+     relative; k of 1 to 512, k > N, ties, B3, disjoint queries, N not a
+     multiple of its chunk) and against the spatial kernel on slice 3's
+     131072-point stem; the FPS chain of a B1 x 2228224 surface scene
+     (2228224 -> 278528 -> 69632 in the grid design, then 17408 and 8704 in
+     the cluster design) against the plain version, and the grid design
+     against the cluster design at 131072; the request's 8 spatial and 2
+     resident searches on those levels, each launched on its whole query
+     set, against ``knn_point_chunked`` on all rows or on 2^32 / N seeded
+     ones; the stem's kNN on 4096 seeded rows against ``knn_point_chunked``
+     on the card, and the full M = N launch's rows against those; then
+     ``PointASNLSemSegRes(21, nl_kv_block_size=4096)`` answers a warm-up
+     and 2 requests of B1 x 2228224: a request must launch the streaming
+     kNN 1, the spatial kNN 8, the resident kNN 2, FPS 4 and no ball query
+     or flash kernel, and return finite (1, 2228224, 21)
+     logits; peak memory, p50 by CUDA events, a profiler window over one
+     request, and the times of the path's streaming kNN and FPS. This phase
+     alone: ``python3 -c "import chip_smoke as c; d = c.phase_device();
+     c.slice5(d[1], d[0], print)"``.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
@@ -101,6 +122,9 @@ KERNELS = {  # "symbol": what the kernel's name holds in a profiler trace
     "knn_spatial": {"source": "pointasnl_tpu_torch/csrc/knn_spatial.cu",
                     "replaces": "pointasnl_tpu/ops/pallas/knn_spatial.py:122",
                     "symbol": "knn_spatial_kernel"},
+    "knn_streaming": {"source": "pointasnl_tpu_torch/csrc/knn_streaming.cu",
+                      "replaces": "pointasnl_tpu/ops/pallas/knn.py:109",
+                      "symbol": "knn_stream_kernel"},
     "flash_fwd": {"source": "pointasnl_tpu_torch/csrc/flash_attention.cu",
                   "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:90",
                   "symbol": "flash_fwd_kernel"},
@@ -110,6 +134,7 @@ KERNELS = {  # "symbol": what the kernel's name holds in a profiler trace
                   "symbol": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")},
 }
 FPS_CLUSTER_SYMBOL = "fps_cluster_kernel"  # the scene-scale design of csrc/fps.cu
+FPS_GRID_SYMBOL = "fps_grid_kernel"  # its design past 131072 points
 # (B, N, npoint) and (B, N support, M query, k) of slice 1's two SA layers.
 FPS_SHAPES = [(8, 1024, 512), (8, 512, 128)]
 KNN_SHAPES = [(8, 1024, 512, 32), (8, 512, 128, 64)]
@@ -181,6 +206,24 @@ FLASH_FWD_ONLY = {"past the TPU's envelope, N 131072": (1, 512, 131072, 32, 32, 
 # whose float32 rounding moves p by ~1e-5 relative.
 FLASH_RTOL, FLASH_GRAD_RTOL = 1e-5, 1e-4
 
+# Slice 5: whole-scene serving past 2^21 points, one B1 surface scene of
+# 2^21 + 2^17 = 17 x 131072 points at slice 3's density (scene() scales the
+# extent to 6.0 x sqrt(17)), K/V blocks of 4096, BIG_REQUESTS requests on as
+# many scenes after a warm-up. The full-scene kNN checks take BIG_ROWS seeded
+# query rows.
+BIG_N, BIG_REQUESTS, BIG_ROWS = 2228224, 2, 4096
+# The request's other searches are held to the plain version on rows whose
+# pairs stay within BIG_PAIRS (about half a second of the plain kNN).
+BIG_PAIRS = 2 ** 32
+BIG_LEVELS = [BIG_N, BIG_N // 8, BIG_N // 32, BIG_N // 128, BIG_N // 256]
+# A request's launches, routed as the JAX package routes them: the stem's
+# self-kNN takes the streaming kernel (N > 2^21); the spatial kernel layer2_1,
+# layer2_2, layer3_1, layer3_2, layer4_1 and the three_nn of fa_layer2-4
+# (support 17408 to 278528); the resident kernel layer4_2 (8704 points) and
+# fa_layer1's three_nn; FPS the four levels, the first two in the grid design.
+BIG_LAUNCHES = {"fps": 4, "knn_resident": 2, "ball_query": 0, "knn_spatial": 8,
+                "knn_streaming": 1, "flash_fwd": 0, "flash_bwd": 0}
+
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
 # HBM bandwidth, for each kernel's bound.
 PEAK_F32_FLOPS = 67e12
@@ -242,7 +285,9 @@ def device_ms(fn, kernels, calls: int = 10):
     """Median device time (ms) of one launch of each of `kernels` (a
     substring of a CUDA kernel's name, or a tuple of them for a call that
     launches several) over `calls` calls of fn, summed, from torch.profiler;
-    None where the profiler records no launch of one of them."""
+    None where the profiler records no launch of one of them. Call it before
+    any profile_window: once that scheduled profiler has run, this one
+    recorded no launch on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -364,6 +409,21 @@ def phase_fps(dev) -> float:
     return float(worst)
 
 
+def check_knn(what: str, got, want, self_rows=None) -> float:
+    """Indices exact and d2 within 1e-6 relative; with `self_rows`, each
+    query's first neighbour is that support index. Returns max |d2 err|."""
+    (got_d, got_i), (want_d, want_i) = got, want
+    if got_i.shape != want_i.shape or not torch.equal(got_i, want_i):
+        raise RuntimeError(f"{what}: {int((got_i != want_i).sum())} indices differ")
+    err = (got_d - want_d).abs()
+    if bool((err > 1e-6 * want_d.abs()).any()):
+        raise RuntimeError(f"{what}: dist2 beyond 1e-6 relative (max abs {float(err.max()):.3e})")
+    if self_rows is not None and not torch.equal(got_i[..., 0].long(), self_rows):
+        raise RuntimeError(f"{what}: a query in the support is not its own first neighbour")
+    print(f"{what}: indices exact, max |d2 err| {float(err.max()):.3e}")
+    return float(err.max())
+
+
 def phase_knn(dev) -> float:
     from pointasnl_tpu_torch.ops import geometry
     from pointasnl_tpu_torch.ops.cuda import fps, knn
@@ -390,20 +450,13 @@ def phase_knn(dev) -> float:
 
     worst = 0.0
     for name, support, query, k in cases:
-        got_d, got_i = knn.knn_point(k, support, query)
-        want_d, want_i = geometry.knn_point(k, support, query)
+        got = knn.knn_point(k, support, query)
+        want = geometry.knn_point(k, support, query)
         torch.cuda.synchronize()
-        if not torch.equal(got_i, want_i):
-            raise RuntimeError(f"knn {name}: {int((got_i != want_i).sum())} indices differ")
-        err = (got_d - want_d).abs()
-        if bool((err > 1e-6 * want_d.abs()).any()):
-            raise RuntimeError(f"knn {name}: dist2 beyond 1e-6 relative (max abs {float(err.max()):.3e})")
-        if "self first" in name and not torch.equal(
-                got_i[..., 0].long(), torch.arange(0, 1024, 4, device=dev).expand(2, -1)):
-            raise RuntimeError("knn: a query in the support is not its own first neighbour")
-        worst = max(worst, float(err.max()))
-        print(f"knn {name}: indices exact, max |d2 err| {float(err.max()):.3e}")
-        del got_d, got_i, want_d, want_i
+        self_rows = (torch.arange(0, 1024, 4, device=dev).expand(2, -1) if "self first" in name
+                     else None)
+        worst = max(worst, check_knn(f"knn {name}", got, want, self_rows))
+        del got, want
     return worst
 
 
@@ -463,18 +516,20 @@ def layer_indices(xyz: torch.Tensor, npoint: int, k: int):
 
 
 def counts():
-    from pointasnl_tpu_torch.ops.cuda import ball_query, flash_attention, fps, knn, knn_spatial
+    from pointasnl_tpu_torch.ops.cuda import (ball_query, flash_attention, fps, knn, knn_spatial,
+                                              knn_streaming)
 
     return {"fps": fps.launches, "knn_resident": knn.launches, "ball_query": ball_query.launches,
-            "knn_spatial": knn_spatial.launches, "flash_fwd": flash_attention.fwd_launches,
-            "flash_bwd": flash_attention.bwd_launches}
+            "knn_spatial": knn_spatial.launches, "knn_streaming": knn_streaming.launches,
+            "flash_fwd": flash_attention.fwd_launches, "flash_bwd": flash_attention.bwd_launches}
 
 
 def reset_counts():
-    from pointasnl_tpu_torch.ops.cuda import ball_query, flash_attention, fps, knn, knn_spatial
+    from pointasnl_tpu_torch.ops.cuda import (ball_query, flash_attention, fps, knn, knn_spatial,
+                                              knn_streaming)
 
     fps.launches = knn.launches = ball_query.launches = knn_spatial.launches = 0
-    flash_attention.fwd_launches = flash_attention.bwd_launches = 0
+    knn_streaming.launches = flash_attention.fwd_launches = flash_attention.bwd_launches = 0
 
 
 def phase_cls(dev):
@@ -494,7 +549,7 @@ def phase_cls(dev):
     launches = counts()
     print(f"cls slice: {REQUESTS} requests of B{BATCH}x{NUM_POINT}; launches {launches}")
     if launches != {"fps": 2 * REQUESTS, "knn_resident": 2 * REQUESTS, "ball_query": 0,
-                    "knn_spatial": 0, "flash_fwd": 0, "flash_bwd": 0}:
+                    "knn_spatial": 0, "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0}:
         raise RuntimeError(f"cls launches {launches}, expected 2 FPS and 2 kNN a request")
 
     for r, (x, out) in enumerate(zip(clouds, logits)):
@@ -579,8 +634,8 @@ def phase_seg(dev, flash: bool = False):
           f"parameters; {SEG_STEPS} train steps of B{SEG_B}x{SEG_N}; launches {launches}")
     nl = 4 * flash
     if launches != {"fps": 4 * SEG_STEPS, "knn_resident": 11 * SEG_STEPS,
-                    "ball_query": SEG_STEPS, "knn_spatial": 0, "flash_fwd": nl * SEG_STEPS,
-                    "flash_bwd": nl * SEG_STEPS}:
+                    "ball_query": SEG_STEPS, "knn_spatial": 0, "knn_streaming": 0,
+                    "flash_fwd": nl * SEG_STEPS, "flash_bwd": nl * SEG_STEPS}:
         raise RuntimeError(f"{label} train launches {launches}, expected FPS 4, kNN 11, "
                            f"ball query 1, flash forward {nl} and backward {nl} a step")
     for s, m in enumerate(metrics):
@@ -605,8 +660,8 @@ def phase_seg(dev, flash: bool = False):
     print(f"{label} serve: {SEG_REQUESTS} requests of B{SEG_B}x{SEG_N}; launches "
           f"{serve_launches}")
     if serve_launches != {"fps": 4 * SEG_REQUESTS, "knn_resident": 11 * SEG_REQUESTS,
-                          "ball_query": 0, "knn_spatial": 0, "flash_fwd": nl * SEG_REQUESTS,
-                          "flash_bwd": 0}:
+                          "ball_query": 0, "knn_spatial": 0, "knn_streaming": 0,
+                          "flash_fwd": nl * SEG_REQUESTS, "flash_bwd": 0}:
         raise RuntimeError(f"{label} serve launches {serve_launches}, expected FPS 4, kNN 11, "
                            f"flash forward {nl} and no ball query or flash backward a request")
     for r, out in enumerate(logits):
@@ -768,18 +823,11 @@ def phase_spatial(dev) -> float:
 
     worst = 0.0
     for name, support, query, k in spatial_cases(dev):
-        got_d, got_i = knn_spatial.knn_point(k, support, query)
-        want_d, want_i = geometry.knn_point(k, support, query)
+        got = knn_spatial.knn_point(k, support, query)
+        want = geometry.knn_point(k, support, query)
         torch.cuda.synchronize()
-        if not torch.equal(got_i, want_i):
-            raise RuntimeError(f"spatial knn {name}: {int((got_i != want_i).sum())} indices differ")
-        err = (got_d - want_d).abs()
-        if bool((err > 1e-6 * want_d.abs()).any()):
-            raise RuntimeError(f"spatial knn {name}: dist2 beyond 1e-6 relative "
-                               f"(max abs {float(err.max()):.3e})")
-        worst = max(worst, float(err.max()))
-        print(f"spatial knn {name}: indices exact, max |d2 err| {float(err.max()):.3e}")
-        del got_d, got_i, want_d, want_i
+        worst = max(worst, check_knn(f"spatial knn {name}", got, want))
+        del got, want
     return worst
 
 
@@ -801,7 +849,8 @@ def phase_scene(dev):
           f"{SCENE_BLOCK}); launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want = {"fps": 4 * SCENE_REQUESTS, "knn_resident": 8 * SCENE_REQUESTS, "ball_query": 0,
-            "knn_spatial": 3 * SCENE_REQUESTS, "flash_fwd": 0, "flash_bwd": 0}
+            "knn_spatial": 3 * SCENE_REQUESTS, "knn_streaming": 0, "flash_fwd": 0,
+            "flash_bwd": 0}
     if launches != want:
         raise RuntimeError(f"whole-scene launches {launches}, expected FPS 4, spatial kNN 3, "
                            f"resident kNN 8 and no ball query a request")
@@ -941,17 +990,21 @@ def spatial_bound(B, N, M, k):
 def time_kernels(dev, card):
     """Kernel vs plain times, and bounds, at every slice's shapes."""
     from pointasnl_tpu_torch.ops import geometry
-    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial
+    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial, knn_streaming
 
     rows = {name: [] for name in KERNELS}
 
     def add(name, path, shape, plain, kernel, bnd, timing=LIGHT, plain_timing=None,
-            symbol=None, library=None, **extra):
+            symbol=None, library=None, search=None, **extra):
         call_ms, p_ms = in_turns(plain, kernel, timing, plain_timing)
         dev_ms = device_ms(kernel, symbol or KERNELS[name]["symbol"])
         if dev_ms is None:
             print(f"time {name} {shape}: the profiler saw no launch; ms is the call time")
         lib_ms = statistics.median(time_ms(library, *timing)) if library else None
+        if search:  # a resident search: the streaming kernel on it too, off the path
+            stream = lambda: knn_streaming.knn_point(*search)
+            extra["streaming_ms"] = (device_ms(stream, KERNELS["knn_streaming"]["symbol"])
+                                     or statistics.median(time_ms(stream, *timing)))
         rows[name].append({"path": path, "shape": shape,
                            "ms": call_ms if dev_ms is None else dev_ms, "call_ms": call_ms,
                            "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -965,7 +1018,7 @@ def time_kernels(dev, card):
         s = cloud(12, B, N, dev)
         q = geometry.gather_point(s, fps.farthest_point_sample(M, s))
         add("knn_resident", "cls", f"B{B} {M}q/{N} k{k}", lambda: geometry.knn_point(k, s, q),
-            lambda: knn.knn_point(k, s, q), knn_bound(B, N, M, k))
+            lambda: knn.knn_point(k, s, q), knn_bound(B, N, M, k), search=(k, s, q))
     levels = seg_levels(dev, seed=22)
     for a, n in zip(levels, SEG_LEVELS[1:]):
         add("fps", "seg", f"B{SEG_B} N{a.shape[1]}->{n}",
@@ -976,7 +1029,7 @@ def time_kernels(dev, card):
         N, M = s.shape[1], q.shape[1]
         add("knn_resident", "seg", f"B{SEG_B} {M}q/{N} k{k}", lambda: geometry.knn_point(k, s, q),
             lambda: knn.knn_point(k, s, q), knn_bound(SEG_B, N, M, k),
-            timing=HEAVY if N * M >= 10**7 else LIGHT)
+            timing=HEAVY if N * M >= 10**7 else LIGHT, search=(k, s, q))
     l1 = levels[1]
     idx, cnt = ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1)
     n1 = l1.shape[1]
@@ -1006,7 +1059,7 @@ def time_kernels(dev, card):
         if N <= 12288:
             add("knn_resident", "scene", f"B1 {M}q/{N} k{k}", lambda: geometry.knn_point(k, s, q),
                 lambda: knn.knn_point(k, s, q), knn_bound(1, N, M, k),
-                timing=HEAVY if N * M >= 10**7 else LIGHT)
+                timing=HEAVY if N * M >= 10**7 else LIGHT, search=(k, s, q))
     # The flash seg step's four non-local cells; F.scaled_dot_product_attention
     # at the same shapes is the yardstick (library_ms): the forward, and for
     # the backward the forward with its backward.
@@ -1043,6 +1096,8 @@ def time_kernels(dev, card):
             lib = (f", F.scaled_dot_product_attention {r['library_ms']:.4f} ms"
                    f"{' (forward and backward)' if name == 'flash_bwd' else ''}"
                    if r["library_ms"] is not None else "")
+            if "streaming_ms" in r:
+                lib += f", the streaming kernel {r['streaming_ms']:.4f} ms"
             print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms on the "
                   f"device, {r['call_ms']:.4f} ms a call back to back, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
@@ -1101,8 +1156,8 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
           f"(CUDA events); {BATCH * NUM_POINT / fwd * 1e3:.0f} points/s at p50  [{card}]")
 
     batch = seg_batch(500, SEG_B, SEG_N, SEG_SIDE, dev)
-    dense = {"fps": 4, "knn": 11, "knn_spatial": 0, "ball_query": 1, "flash_fwd": 0,
-             "flash_bwd": 0}
+    dense = {"fps": 4, "knn": 11, "knn_spatial": 0, "knn_streaming": 0, "ball_query": 1,
+             "flash_fwd": 0, "flash_bwd": 0}
     # The dense step and the same step under nl_use_flash, in turns; a flash
     # backward is two CUDA kernels (dQ, then dK and dV).
     seg = time_seg(card, {
@@ -1118,16 +1173,18 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
           f"ms of 10 (CUDA events); {SCENE_N / scene_p50 * 1e3:.0f} points/s at p50; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     profile_window(lambda: scene_infer(scene_x), 2,
-                   {"fps": 4, "knn": 8, "knn_spatial": 3, "ball_query": 0, "flash_fwd": 0,
-                    "flash_bwd": 0}, card, "whole-scene requests", "profile_whole_scene.json")
+                   {"fps": 4, "knn": 8, "knn_spatial": 3, "knn_streaming": 0, "ball_query": 0,
+                    "flash_fwd": 0, "flash_bwd": 0}, card, "whole-scene requests",
+                   "profile_whole_scene.json")
     return {"cls_forward_ms": fwd, "seg_step_ms": step_p50, "seg_serve_ms": serve_p50,
             "flash_seg_step_ms": flash_p50, "flash_seg_serve_ms": flash_serve_p50,
             "scene_ms": scene_p50}
 
 
 # Each ported kernel's launches in a profiler trace, by the names they hold.
-PROFILE_SYMBOLS = {"fps": ("fps_kernel", FPS_CLUSTER_SYMBOL), "knn": ("knn_kernel",),
-                   "knn_spatial": ("knn_spatial_kernel",), "ball_query": ("ball_query_kernel",),
+PROFILE_SYMBOLS = {"fps": ("fps_kernel", FPS_CLUSTER_SYMBOL, FPS_GRID_SYMBOL),
+                   "knn": ("knn_kernel",), "knn_spatial": ("knn_spatial_kernel",),
+                   "knn_streaming": ("knn_stream_kernel",), "ball_query": ("ball_query_kernel",),
                    "flash_fwd": ("flash_fwd_kernel",),
                    "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")}
 
@@ -1136,7 +1193,7 @@ def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
     """One torch.profiler window over n calls of fn, after one traced and
     dropped warm-up call: device-busy share and device time by kernel name,
     the ported kernels picked out with the launches recorded (`per_call`
-    launches expected a call)."""
+    launches expected a call). Returns the window's device events."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traces = []  # the active calls' events, handed over when the cycle ends
@@ -1159,7 +1216,7 @@ def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
               and not getattr(e, "is_user_annotation", False)]
     if not events:
         print(f"profile, {label}: the profiler recorded no device time; see the CUDA-event times")
-        return
+        return events
     spans, by_name = [], {}
     for e in events:
         start, end = e.time_range.start, e.time_range.end
@@ -1201,6 +1258,265 @@ def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
     (OUT_DIR / out_name).write_text(json.dumps(
         {"card": card, "calls": n, "wall_us": wall_us, "busy_us": busy,
          "device_us_by_name": dict(top)}, indent=1))
+    return events
+
+def timed(fn):
+    """fn()'s result and the ms its call took by CUDA events (one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def streaming_cases(dev):
+    """(name, support, query, k, self rows or None) of the streaming kNN's
+    checks against its plain version."""
+    g = cloud(30, 1, 3001, dev)  # N not a multiple of the 1024-point chunk
+    self_g = torch.arange(3001, device=dev)[None]
+    cases = [(f"self 3001 k{k}", g, g, k, self_g) for k in (1, 3, 32, 128, 129, 512)]
+    cases.append(("k > N, B2 37q/100 k300", cloud(31, 2, 100, dev), cloud(32, 2, 37, dev), 300,
+                  None))
+    d = cloud(33, 1, 4000, dev, dup=2000)  # ties: the lower index first
+    cases.append(("duplicates 2000q/4000 k32", d, d[:, 1000:3000].contiguous(), 32, None))
+    cases.append(("disjoint B3 700q/5000 k16", cloud(34, 3, 5000, dev), cloud(35, 3, 700, dev),
+                  16, None))
+    c = cloud(36, 1, 1025, dev)
+    cases.append(("N 1025, a chunk and a point (self) k8", c, c, 8,
+                  torch.arange(1025, device=dev)[None]))
+    x = scene(37, 200000, dev)
+    cases.append(("scene 4000q/200000 k32", x, x[:, ::50].contiguous(), 32,
+                  torch.arange(0, 200000, 50, device=dev)[None]))
+    return cases
+
+
+def phase_streaming(dev) -> float:
+    """The streaming kNN kernel against its plain version, and against the
+    spatial kernel on slice 3's 131072-point stem self-search."""
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import knn_spatial, knn_streaming
+
+    worst = 0.0
+    for name, support, query, k, self_rows in streaming_cases(dev):
+        got = knn_streaming.knn_point(k, support, query)
+        want = geometry.knn_point(k, support, query)
+        torch.cuda.synchronize()
+        worst = max(worst, check_knn(f"streaming knn {name}", got, want, self_rows))
+        del got, want
+    x = scene(0, SCENE_N, dev)
+    got = knn_streaming.knn_point(32, x, x)
+    want = knn_spatial.knn_point(32, x, x)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+        raise RuntimeError(f"streaming knn: {int((got[1] != want[1]).sum())} indices differ from "
+                           f"the spatial kernel's on the {SCENE_N}-point stem")
+    print(f"streaming knn {SCENE_N}q/{SCENE_N} k32 (slice 3's stem): indices and d2 equal to the "
+          f"spatial kernel's")
+    return worst
+
+
+def big_levels(dev):
+    """The xyz of a B1 x BIG_N request's five levels, FPS of FPS of the
+    scene, each level's FPS (the grid design, then the cluster design) held
+    to the plain version on its whole chain, and the grid design against the
+    cluster design at 131072 points. Returns (levels, the plain versions' ms
+    by (N, npoint), one call each)."""
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import fps
+
+    levels, plain_ms = [scene(0, BIG_N, dev)], {}
+    for n in BIG_LEVELS[1:]:
+        a = levels[-1]
+        N, name = a.shape[1], fps.design(a.shape[1])
+        if name != ("grid" if N > SCENE_N else "cluster"):
+            raise RuntimeError(f"fps B1 N{N}: routed to the {name} design")
+        got = fps.farthest_point_sample(n, a)
+        want, plain_ms[(N, n)] = timed(lambda: geometry.farthest_point_sample(n, a))
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise RuntimeError(f"fps B1 N{N} -> {n} ({name} design): kernel and plain differ at "
+                               f"{int((got != want).sum())} picks")
+        print(f"fps B1 N{N} -> {n} ({name} design, the request's chain): indices exact")
+        levels.append(geometry.gather_point(a, got))
+    s3 = scene(0, SCENE_N, dev)
+    grid = fps._sample("grid", SCENE_LEVELS[1], s3)
+    cluster = fps._sample("cluster", SCENE_LEVELS[1], s3)
+    torch.cuda.synchronize()
+    if not torch.equal(grid, cluster):
+        raise RuntimeError(f"fps B1 N{SCENE_N} -> {SCENE_LEVELS[1]}: grid and cluster designs "
+                           f"differ at {int((grid != cluster).sum())} picks")
+    print(f"fps B1 N{SCENE_N} -> {SCENE_LEVELS[1]}: grid design equal to the cluster design")
+    return levels, plain_ms
+
+
+def phase_big_searches(levels) -> dict:
+    """A B1 x BIG_N request's kNN searches but the stem's (phase_big_scene
+    checks that one), each routed as in a request and launched on its whole
+    query set: the rows, all of them or BIG_PAIRS // N seeded ones where the
+    plain version would take longer, held to the plain version. Returns max
+    |d2 err| by kernel."""
+    from pointasnl_tpu_torch import ops
+    from pointasnl_tpu_torch.ops import geometry
+
+    routes, worst = {}, {}
+    for si, qi, k in SEG_KNN:
+        s, q = levels[si], levels[qi]
+        N, M = s.shape[1], q.shape[1]
+        route = ops.dispatch.knn_route(N, k)
+        routes[route] = routes.get(route, 0) + 1
+        if si == qi == 0:
+            continue
+        got_d, got_i = ops.knn_point(k, s, q)
+        rows = torch.arange(M, device=q.device)
+        if M * N > BIG_PAIRS:
+            rows = torch.from_numpy(np.sort(np.random.RandomState(si * 5 + qi).choice(
+                M, BIG_PAIRS // N, replace=False))).to(q.device)
+        err = check_knn(f"{route} knn B1 {M}q/{N} k{k} (slice 5's request), {len(rows)} rows",
+                        (got_d[:, rows], got_i[:, rows]),
+                        geometry.knn_point_chunked(k, s, q[:, rows].contiguous()))
+        name = "knn_resident" if route == "resident" else f"knn_{route}"
+        worst[name] = max(worst.get(name, 0.0), err)
+        del got_d, got_i
+    want = {r: BIG_LAUNCHES[f"knn_{r}"] for r in ("streaming", "spatial", "resident")}
+    if routes != want:
+        raise RuntimeError(f"slice 5's searches route {routes}, expected {want}")
+    return worst
+
+
+def phase_big_scene(dev, card, levels, fps_plain_ms):
+    """Slice 5: the stem's kNN checks, then BIG_REQUESTS whole-scene requests
+    of B1 x BIG_N after a warm-up (launch counts, logits, peak memory, p50), a
+    profiler window over one request, and the times of the path's streaming
+    kNN and FPS (on `levels`, big_levels'). Returns (launches, kernel rows,
+    max |d2 err|)."""
+    from pointasnl_tpu_torch import ops
+    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import fps
+    from pointasnl_tpu_torch.serve import make_inference_fn
+
+    model = PointASNLSemSegRes(SEG_CLASSES, nl_kv_block_size=SCENE_BLOCK,
+                               generator=torch.Generator().manual_seed(SEED), device=dev)
+    infer = make_inference_fn(model)
+    scenes = levels[:1] + [scene(r, BIG_N, dev) for r in range(1, BIG_REQUESTS)]
+    x = scenes[0]
+    rows = torch.from_numpy(np.sort(np.random.RandomState(50).choice(BIG_N, BIG_ROWS,
+                                                                     replace=False))).to(dev)
+    sub = x[:, rows].contiguous()
+    # The stem's search, routed as in a request, on BIG_ROWS of its rows.
+    if ops.dispatch.knn_route(BIG_N, 32) != "streaming":
+        raise RuntimeError("the stem's kNN is not routed to the streaming kernel")
+    subset = ops.knn_point(32, x, sub)
+    err = check_knn(f"streaming knn B1 {BIG_ROWS}q/{BIG_N} k32 (the stem's rows)", subset,
+                    geometry.knn_point_chunked(32, x, sub))
+
+    t0 = time.perf_counter()
+    infer(x)
+    torch.cuda.synchronize()
+    print(f"big scene: warm-up request in {time.perf_counter() - t0:.2f} s")
+    # The request's own stem graph, M = N: its rows are the subset's.
+    (full_d, full_i), full_ms = timed(lambda: ops.knn_point(32, x, x))
+    if not (torch.equal(full_i[:, rows], subset[1]) and torch.equal(full_d[:, rows], subset[0])):
+        raise RuntimeError("streaming knn: the M = N launch's rows differ from the subset's")
+    print(f"streaming knn B1 {BIG_N}q/{BIG_N} k32 (the stem graph): its {BIG_ROWS} checked rows "
+          f"equal the subset launch's; {full_ms:.3f} ms a call  [{card}]")
+    del full_d, full_i
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for r, xs in enumerate(scenes):
+        out, ms = timed(lambda: infer(xs))
+        times.append(ms)
+        if out.shape != (1, BIG_N, SEG_CLASSES) or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"big-scene request {r}: logits {tuple(out.shape)} not all finite")
+        del out
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p50 = statistics.median(times)
+    print(f"big scene: {BIG_REQUESTS} requests of B1x{BIG_N} (nl_kv_block_size {SCENE_BLOCK}); "
+          f"launches {launches}; logits (1, {BIG_N}, {SEG_CLASSES}) finite; peak memory "
+          f"{peak:.2f} GiB")
+    want = {k: v * BIG_REQUESTS for k, v in BIG_LAUNCHES.items()}
+    if launches != want:
+        raise RuntimeError(f"big-scene launches {launches}, expected {BIG_LAUNCHES} a request")
+    print(f"time big-scene request B1x{BIG_N}: p50 {p50:.3f} ms of {BIG_REQUESTS} "
+          f"({', '.join(f'{t:.3f}' for t in times)} ms, CUDA events); "
+          f"{BIG_N / p50 * 1e3:.0f} points/s at p50; peak memory {peak:.2f} GiB  [{card}]")
+    events = profile_window(lambda: infer(x), 1, {"fps": 4, "knn": 2, "knn_spatial": 8,
+                                                  "knn_streaming": 1, "ball_query": 0,
+                                                  "flash_fwd": 0, "flash_bwd": 0},
+                            card, "big-scene requests", "profile_big_scene.json")
+
+    # The path's streaming kNN and FPS: device ms from the profiled request
+    # (its launches of a kernel in the order they ran, so FPS level by
+    # level), call ms by CUDA events; the plain kNN on BIG_ROWS rows (the
+    # whole search has 544 times as many), the plain FPS as big_levels
+    # timed it. Another profiler window after a request's may record no
+    # launch (seen on the card), so the BIG_ROWS check row, which is off the
+    # path, has CUDA-event times only.
+    def in_request(symbol, count):
+        ms = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in events
+                    if symbol in e.name)
+        if len(ms) != count:
+            print(f"profile, big-scene requests: {len(ms)} of {count} launches of {symbol} "
+                  f"recorded; their ms are the call times")
+            return [None] * count
+        return [t for _, t in ms]
+
+    request_ms = {"knn_streaming": in_request(KERNELS["knn_streaming"]["symbol"], 1),
+                  FPS_GRID_SYMBOL: in_request(FPS_GRID_SYMBOL, 2),
+                  FPS_CLUSTER_SYMBOL: in_request(FPS_CLUSTER_SYMBOL, 2)}
+    rows_out = {"knn_streaming": [], "fps": []}
+
+    def row(name, shape, ms, call_ms, plain_ms, bnd, plain_shape=None, path="scene_2228224"):
+        rows_out[name].append({"path": path, "shape": shape, "ms": ms, "call_ms": call_ms,
+                               "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                               "library_ms": None,
+                               **({"plain_shape": plain_shape} if plain_shape else {}),
+                               **({"ms_is_call_ms": True} if ms == call_ms else {})})
+
+    sub_ms, sub_plain_ms = in_turns(lambda: geometry.knn_point_chunked(32, x, sub),
+                                    lambda: ops.knn_point(32, x, sub), (2, 1))
+    row("knn_streaming", f"B1 {BIG_N}q/{BIG_N} k32 (stem, self)",
+        request_ms["knn_streaming"][0] or full_ms, full_ms, sub_plain_ms,
+        knn_bound(1, BIG_N, BIG_N, 32), plain_shape=f"B1 {BIG_ROWS}q/{BIG_N} k32")
+    row("knn_streaming", f"B1 {BIG_ROWS}q/{BIG_N} k32 (the stem's rows)", sub_ms, sub_ms,
+        sub_plain_ms, knn_bound(1, BIG_N, BIG_ROWS, 32), path="check")
+    for level, (a, n) in enumerate(zip(levels, BIG_LEVELS[1:])):
+        N = a.shape[1]
+        grid = fps.design(N) == "grid"
+        call_ms = statistics.median(time_ms(lambda a=a, n=n: fps.farthest_point_sample(n, a),
+                                            1 if N == BIG_N else 3, 1, warmup=0))
+        d_ms = request_ms[FPS_GRID_SYMBOL if grid else FPS_CLUSTER_SYMBOL][level % 2] or call_ms
+        row("fps", f"B1 N{N}->{n} ({'grid' if grid else 'cluster'} design)", d_ms, call_ms,
+            fps_plain_ms[(N, n)], fps_bound(1, N, n))
+    for name, rs in rows_out.items():
+        for r in rs:
+            plain = f" on {r['plain_shape']}" if "plain_shape" in r else ""
+            where = "by CUDA events" if r.get("ms_is_call_ms") else "on the device"
+            print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms {where}, "
+                  f"{r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{plain}, "
+                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  [{card}]")
+    return launches, rows_out, err
+
+
+def slice5(dev, card, mark):
+    """Slice 5's checks, requests and kernel times: (launches a run of its
+    requests, kernel rows, max |err| by kernel)."""
+    torch.cuda.empty_cache()  # hand the earlier phases' cached blocks back
+    errs = {"knn_streaming": phase_streaming(dev), "fps": 0.0}
+    levels, fps_plain_ms = big_levels(dev)
+    searched = phase_big_searches(levels)
+    mark("slice 5 kernel checks")
+    launches, rows, err = phase_big_scene(dev, card, levels, fps_plain_ms)
+    errs["knn_streaming"] = max(errs["knn_streaming"], err)
+    for name, e in searched.items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    mark("slice 5")
+    return launches, rows, errs
 
 
 def main() -> int:
@@ -1235,34 +1551,44 @@ def main() -> int:
                flash_state, flash_step, flash_infer)
     print(f"card after timing: {clocks} = {smi(clocks)}")
     mark("path timing")
+    big_launches, big_rows, big_errs = slice5(dev, card, mark)
+    for name, e in big_errs.items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    for name, rs in big_rows.items():
+        rows[name] += rs
     records = []
     for name, meta in KERNELS.items():
         # ms, call_ms, plain_ms, bound_ms and library_ms sum the shapes of
         # one call of a path: the seg train step's, for the spatial kernel
         # (which that step never launches) the whole-scene request's, for
-        # the flash kernels the flash seg train step's.
-        path = {"knn_spatial": "scene", "flash_fwd": "seg_flash",
-                "flash_bwd": "seg_flash"}.get(name, "seg")
+        # the streaming kNN the B1 x 2228224 request's, for the flash
+        # kernels the flash seg train step's.
+        path = {"knn_spatial": "scene", "knn_streaming": "scene_2228224",
+                "flash_fwd": "seg_flash", "flash_bwd": "seg_flash"}.get(name, "seg")
         shapes = [r for r in rows[name] if r["path"] == path]
         top = max(shapes, key=lambda r: r["bound_ms"])
         by_path = {"cls_serve": cls_launches[name], "seg_train": seg_launches[name],
                    "seg_serve": serve_launches[name], "whole_scene": scene_launches[name],
                    "seg_flash_train": flash_launches[name],
-                   "seg_flash_serve": flash_serve_launches[name]}
+                   "seg_flash_serve": flash_serve_launches[name],
+                   "whole_scene_2228224": big_launches[name]}
         lib = [r["library_ms"] for r in shapes]
         records.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": errs[name],
-            "ms_path": {"seg": "seg_train", "scene": "whole_scene",
-                        "seg_flash": "seg_flash_train"}[path],
+            "ms_path": {"seg": "seg_train", "scene": "whole_scene", "seg_flash": "seg_flash_train",
+                        "scene_2228224": "whole_scene_2228224"}[path],
             "ms": sum(r["ms"] for r in shapes),
             "call_ms": sum(r["call_ms"] for r in shapes),
             "plain_ms": sum(r["plain_ms"] for r in shapes),
             "bound_ms": sum(r["bound_ms"] for r in shapes),
             "bound_by": top["bound_by"],
             "library_ms": None if None in lib else sum(lib),
+            # Where the plain version was timed on a part of the work.
+            **({"plain_ms_on": [r["plain_shape"] for r in shapes]}
+               if any("plain_shape" in r for r in shapes) else {}),
             "by_shape": rows[name],
         })
     OUT_DIR.mkdir(parents=True, exist_ok=True)

@@ -3,11 +3,11 @@
   - A CPU tensor goes to the plain PyTorch version (``ops.geometry``).
   - A CUDA tensor goes to the hand-written kernel (``ops.cuda``), or the call
     raises. No switch, environment variable or failed build sends a CUDA
-    tensor to the plain version. The kNN picks its kernel by shape, as
-    ``pointasnl_tpu/ops/pallas/knn.py:knn_point`` does: the resident kernel up
-    to N = 12288, the spatially-pruned one past it up to N = 2^21 with
-    k <= 128, and an error for the rest (the streaming kernel that takes it
-    is not ported yet).
+    tensor to the plain version. The kNN picks its kernel by (N, k)
+    (``knn_route``), in the order of
+    ``pointasnl_tpu/ops/pallas/knn.py:knn_point``: the resident kernel up to
+    N = 12288 with k <= 128, the spatially-pruned one past it up to N = 2^21
+    with k <= 128, and the streaming kernel for the rest.
   - Any other device raises.
 
 The gathers are plain index gathers on every device: their backward is
@@ -28,10 +28,11 @@ from pointasnl_tpu_torch.ops.cuda import ball_query as _cuda_ball
 from pointasnl_tpu_torch.ops.cuda import fps as _cuda_fps
 from pointasnl_tpu_torch.ops.cuda import knn as _cuda_knn
 from pointasnl_tpu_torch.ops.cuda import knn_spatial as _cuda_spatial
+from pointasnl_tpu_torch.ops.cuda import knn_streaming as _cuda_streaming
 
-# The resident kernel's largest N (knn.py:RESIDENT_MAX_N); past it the
-# spatial kernel.
-RESIDENT_MAX_N = 12288
+# The resident kernel's largest N (knn.py:RESIDENT_MAX_N) and its largest k;
+# past that N the spatial kernel.
+RESIDENT_MAX_N, RESIDENT_MAX_K = 12288, 128
 
 pairwise_sqdist = _g.pairwise_sqdist
 gather_point = _g.gather_point
@@ -56,17 +57,42 @@ def farthest_point_sample(npoint, xyz):
 farthest_point_sample.__doc__ = _g.farthest_point_sample.__doc__
 
 
+def knn_route(n: int, k: int) -> str:
+    """The kernel that takes a search of k neighbours over n support points
+    on the card: "resident", "spatial" or "streaming".
+
+    | Search                                    | Kernel    |
+    |-------------------------------------------|-----------|
+    | n <= 12288 and k <= 128                   | resident  |
+    | 12288 < n <= 2^21 and k <= 128            | spatial   |
+    | n > 2^21, or k > 128 at any n             | streaming |
+
+    The JAX package's order (knn.py:knn_point). Where JAX sends k > 128 at
+    n <= 65536 to its resident scan, and k > n to its plain oracle, the port
+    takes the streaming and the resident kernel: the contract, and so the
+    result, is the same. Raises past the streaming kernel's caps, naming them.
+    """
+    if not 1 <= n <= _cuda_streaming.MAX_N or not 1 <= k <= _cuda_streaming.MAX_K:
+        raise ValueError(f"knn_point on the card takes 1 <= N <= {_cuda_streaming.MAX_N} and "
+                         f"1 <= k <= {_cuda_streaming.MAX_K} (the streaming kNN kernel's "
+                         f"caps), got N={n}, k={k}")
+    if k <= RESIDENT_MAX_K and n <= RESIDENT_MAX_N:
+        return "resident"
+    if k <= _cuda_spatial.MAX_K and n <= _cuda_spatial.MAX_N:
+        return "spatial"
+    return "streaming"
+
+
 def knn_point(k, support, query):
     if not _on_cuda(support, "knn_point"):
         return _g.knn_point(k, support, query)
-    N = support.shape[1]
-    if N <= RESIDENT_MAX_N:
+    route = knn_route(support.shape[1], k)
+    if route == "resident":
         return _cuda_knn.knn_point(k, support, query)
-    if N <= _cuda_spatial.MAX_N and k <= _cuda_spatial.MAX_K:
+    if route == "spatial":
         # The same tensor twice is a self-query: the wrapper sees `query is support`.
         return _cuda_spatial.knn_point(k, support, query)
-    raise ValueError(f"knn_point on the card: N={N}, k={k} needs the streaming kNN kernel "
-                     f"(pointasnl_tpu/ops/pallas/knn.py:_knn_kernel), which is not ported yet")
+    return _cuda_streaming.knn_point(k, support, query)
 
 
 knn_point.__doc__ = _g.knn_point.__doc__

@@ -28,6 +28,7 @@ from pointasnl_tpu_torch.ops.cuda import flash_attention as cuda_flash
 from pointasnl_tpu_torch.ops.cuda import fps as cuda_fps
 from pointasnl_tpu_torch.ops.cuda import knn as cuda_knn
 from pointasnl_tpu_torch.ops.cuda import knn_spatial as cuda_spatial
+from pointasnl_tpu_torch.ops.cuda import knn_streaming as cuda_streaming
 from pointasnl_tpu_torch.serve import make_inference_fn
 from pointasnl_tpu_torch.train import (
     TrainState,
@@ -65,7 +66,10 @@ def _cloud(seed, B, N, dup=0):
     (2, 10241, 500, 0),   # the smallest N of the cluster design
     (2, 20000, 2000, 10000),  # duplicate points, across the cluster's blocks
     (1, 16384, 4096, 0),  # the whole scene's level 2
-    (1, 131072, 16384, 0),  # the whole scene's level 1: the largest N
+    (1, 131072, 16384, 0),  # the whole scene's level 1: the cluster design's largest N
+    (1, 131073, 2000, 0),  # the grid design's smallest N
+    (2, 300000, 1000, 150000),  # grid design: duplicates, B2, N not a multiple of its blocks
+    (1, 278528, 69632, 0),  # the 2^21 + 2^17 scene's level 2: the grid design's whole chain
 ])
 def test_fps_kernel_matches_plain(dev, B, N, npoint, dup):
     x = _cloud(N + npoint, B, N, dup).to(dev)
@@ -98,6 +102,77 @@ def test_knn_kernel_matches_plain(dev, B, N, M, k, case):
     torch.testing.assert_close(got_d, want_d, rtol=1e-6, atol=1e-7)
     if case == "subset":  # each query is its own first neighbour
         assert torch.equal(got_i[..., 0].long(), torch.arange(0, N, N // M, device=dev)[:M].expand(B, M))
+
+
+def test_fps_grid_design_matches_the_cluster_design(dev):
+    """Where both take N, the grid design picks what the cluster design picks."""
+    x = _scene(8, 1, 131072).to(dev)
+    grid = cuda_fps._sample("grid", 16384, x)
+    cluster = cuda_fps._sample("cluster", 16384, x)
+    torch.cuda.synchronize()
+    assert torch.equal(grid, cluster)
+    assert torch.equal(cuda_fps._sample("grid", 300, x[:, :5000]),
+                       tg.farthest_point_sample(300, x[:, :5000]))
+
+
+def test_fps_grid_design_first_picks_of_a_scene_past_two_million_points(dev):
+    x = _scene(9, 1, 2228224, extent=6.0 * 17 ** 0.5).to(dev)
+    got = cuda_fps.farthest_point_sample(2048, x)
+    want = tg.farthest_point_sample(2048, x)
+    torch.cuda.synchronize()
+    assert cuda_fps.design(x.shape[1]) == "grid" and torch.equal(got, want)
+
+
+def streaming_case(case):
+    """(support, query, k) of a named streaming-kNN case on the CPU; the
+    query is the support itself for a self-query."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    if case.startswith("k"):  # "k<k>": a self-query over a ragged N
+        x = torch.from_numpy(rng.randn(1, 3001, 3).astype(np.float32))
+        return x, x, int(case[1:])
+    if case == "more k than N":
+        return _cloud(1, 2, 100), _cloud(2, 2, 37), 300
+    if case == "duplicates":  # ties: the lower index first
+        x = _cloud(3, 1, 4000, dup=2000)
+        return x, x[:, 1000:3000].clone(), 32
+    if case == "B3 disjoint":
+        return _cloud(4, 3, 5000), _cloud(5, 3, 700), 16
+    if case == "N one past a chunk":
+        x = _cloud(6, 1, 1025)
+        return x, x, 8
+    if case == "scene 200000":  # past nothing, but several thousand chunks of queries
+        x = _scene(10, 1, 200000, extent=6.0 * (200000 / 131072) ** 0.5)
+        return x, x[:, ::50].contiguous(), 32
+    raise ValueError(case)
+
+
+STREAMING_CASES = ["k1", "k3", "k32", "k128", "k129", "k512", "more k than N", "duplicates",
+                   "B3 disjoint", "N one past a chunk", "scene 200000"]
+
+
+@pytest.mark.parametrize("case", STREAMING_CASES)
+def test_streaming_knn_kernel_matches_plain(dev, case):
+    support, query, k = streaming_case(case)
+    self_query = query is support
+    support = support.to(dev)
+    query = support if self_query else query.to(dev)
+    got_d, got_i = cuda_streaming.knn_point(k, support, query)
+    want_d, want_i = tg.knn_point(k, support, query)
+    torch.cuda.synchronize()
+    assert got_i.dtype == torch.int32 and got_i.shape == (*query.shape[:2], k)
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_d, want_d, rtol=1e-6, atol=1e-7)
+    if self_query:  # each point is its own first neighbour
+        assert torch.equal(got_i[..., 0].long(), torch.arange(support.shape[1], device=dev)
+                           .expand(support.shape[0], -1))
+
+
+def test_streaming_knn_matches_the_spatial_kernel_on_a_scene(dev):
+    x = _scene(11, 1, 65536, extent=6.0 / 2 ** 0.5).to(dev)
+    got = cuda_streaming.knn_point(32, x, x)
+    want = cuda_spatial.knn_point(32, x, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def ball_case(case):
@@ -214,8 +289,14 @@ def test_spatial_knn_prunes_a_scene(dev):
 
 
 def test_kernels_refuse_sizes_beyond_their_limits(dev):
+    from pointasnl_tpu_torch.ops.cuda import _build
+
+    grid_max = _build.library().pasnl_fps_grid_max_n()
+    assert grid_max >= 2228224
+    with pytest.raises(ValueError, match=f"N <= {grid_max}"):
+        cuda_fps.farthest_point_sample(8, torch.empty(1, grid_max + 1, 3, device=dev))
     with pytest.raises(ValueError, match="N <= 131072"):
-        cuda_fps.farthest_point_sample(8, torch.zeros(1, 131073, 3, device=dev))
+        cuda_fps._sample("cluster", 8, torch.zeros(1, 131073, 3, device=dev))
     with pytest.raises(ValueError, match="N <= 12288"):
         cuda_knn.knn_point(8, torch.zeros(1, 12289, 3, device=dev), torch.zeros(1, 4, 3, device=dev))
     with pytest.raises(ValueError, match="k <= 128"):
@@ -228,14 +309,22 @@ def test_kernels_refuse_sizes_beyond_their_limits(dev):
         cuda_spatial.knn_point(129, big[:, :20000], big[:, :4])
     with pytest.raises(ValueError, match=r"N <= 2097152"):
         cuda_spatial.knn_point(8, big, big[:, :4])
-    # Past the spatial kernel's range a search needs the streaming kernel.
-    for k, support in ((8, big), (129, big[:, :20000])):
-        with pytest.raises(ValueError, match="streaming kNN kernel"):
-            ops.knn_point(k, support, big[:, :4])
+    # Past the spatial kernel's range the streaming kernel takes a search; it
+    # raises only past its own caps, k <= 512 and N <= 2^28.
+    with pytest.raises(ValueError, match="k <= 512"):
+        cuda_streaming.knn_point(513, big[:, :20000], big[:, :4])
+    with pytest.raises(ValueError, match="k <= 512"):
+        ops.knn_point(513, big[:, :20000], big[:, :4])
+    huge = torch.empty(1, 2 ** 28 + 1, 3, device=dev)
+    with pytest.raises(ValueError, match=r"N <= 268435456"):
+        cuda_streaming.knn_point(8, huge, big[:, :4])
+    with pytest.raises(ValueError, match=r"N <= 268435456"):
+        ops.knn_point(8, huge, big[:, :4])
 
 
 def _counts():
-    return cuda_fps.launches, cuda_knn.launches, cuda_spatial.launches, cuda_ball.launches
+    return (cuda_fps.launches, cuda_knn.launches, cuda_spatial.launches, cuda_ball.launches,
+            cuda_streaming.launches)
 
 
 def _launched(before):
@@ -248,13 +337,26 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(dev):
     ops.farthest_point_sample(16, x)
     ops.knn_point(8, x, x[:, :16])
     ops.query_ball_point(0.2, 8, x, x[:, :16])
-    assert _launched(before) == (1, 1, 0, 1)
+    assert _launched(before) == (1, 1, 0, 1, 0)
     big = _cloud(2, 1, 12289).to(dev)  # past the resident kernel's N
     before = _counts()
     got = ops.knn_point(8, big, big)  # a self-query
-    assert _launched(before) == (0, 0, 1, 0)
+    assert _launched(before) == (0, 0, 1, 0, 0)
     for g, w in zip(got, tg.knn_point(8, big, big)):
         assert torch.equal(g, w)
+
+
+def test_dispatch_sends_large_n_and_large_k_to_the_streaming_kernel(dev):
+    scene = _scene(12, 1, 2 ** 21 + 256, extent=6.0 * 16 ** 0.5).to(dev)
+    queries = scene[:, ::4096].contiguous()
+    small = _cloud(3, 2, 500).to(dev)
+    for k, support, query in ((32, scene, queries), (129, small, small),
+                              (200, small, small[:, :50])):
+        before = _counts()
+        got = ops.knn_point(k, support, query)
+        assert _launched(before) == (0, 0, 0, 0, 1), (k, support.shape)
+        for g, w in zip(got, tg.knn_point(k, support, query)):
+            assert torch.equal(g, w)
 
 
 def test_cls_forward_launches_each_kernel_twice_a_request(dev):
@@ -284,12 +386,12 @@ def test_seg_train_step_and_forward_launch_counts(dev):
     before = _counts()
     metrics = step(state, batch)
     torch.cuda.synchronize()
-    assert _launched(before) == (4, 11, 0, 1)
+    assert _launched(before) == (4, 11, 0, 1, 0)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     before = _counts()
     logits = make_inference_fn(model)(batch["points"])
     torch.cuda.synchronize()
-    assert _launched(before) == (4, 11, 0, 0)
+    assert _launched(before) == (4, 11, 0, 0, 0)
     assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())
 
 
@@ -303,7 +405,7 @@ def test_whole_scene_forward_launch_counts(dev):
     before = _counts()
     logits = make_inference_fn(model)(x)
     torch.cuda.synchronize()
-    assert _launched(before) == (4, 10, 1, 0)
+    assert _launched(before) == (4, 10, 1, 0, 0)
     assert logits.shape == (1, 24576, 21) and bool(torch.isfinite(logits).all())
 
 
@@ -427,7 +529,7 @@ def test_flash_seg_train_step_and_forward_launch_counts(dev):
     metrics = step(state, batch)
     torch.cuda.synchronize()
     assert (cuda_flash.fwd_launches - f0, cuda_flash.bwd_launches - b0) == (4, 4)
-    assert _launched(before) == (4, 11, 0, 1)
+    assert _launched(before) == (4, 11, 0, 1, 0)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     f0, b0 = cuda_flash.fwd_launches, cuda_flash.bwd_launches
     logits = make_inference_fn(model)(batch["points"])

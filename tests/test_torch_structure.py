@@ -36,7 +36,7 @@ def _port_sources():
 def test_port_sources_found():
     names = {p.relative_to(PKG.parent).as_posix() for p in _port_sources()}
     assert {"pointasnl_tpu_torch/ops/dispatch.py", "pointasnl_tpu_torch/models/cls.py",
-            "chip_smoke.py"} <= names
+            "pointasnl_tpu_torch/ops/cuda/knn_streaming.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.relative_to(PKG.parent).as_posix())
@@ -62,7 +62,7 @@ def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
 
     sources = _build._sources()
     assert [p.name for p in sources] == ["ball_query.cu", "flash_attention.cu", "fps.cu", "knn.cu",
-                                         "knn_spatial.cu"]
+                                         "knn_spatial.cu", "knn_streaming.cu"]
     assert _build.BUILD_ROOT == PKG.parent / "build" / "pointasnl_tpu_torch"
     assert _build._digest(sources) == _build._digest(sources)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -17,6 +17,12 @@
   port's dense model. Level 1 streams its 2048 keys in blocks of 768, 768 and
   a ragged 512; level 2 takes the dense branch.
 - ``surface_scene`` gives the JAX package's array to the bit.
+
+The forward here also holds whole-scene serving past 2^21 points (B1 x
+2228224 on the card) to JAX: the modules are the same at that size, and
+only the card's routing differs (the stem's kNN takes the streaming kernel,
+the first two FPS the grid design), which ``tests/test_torch_streaming.py``
+holds to JAX's routing and ``tests/test_torch_cuda.py`` checks on the card.
 """
 
 import jax
