@@ -23,8 +23,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      train steps at B4 x 10240 (Adam, staircase LR, BN-momentum schedule,
      weight decay 1e-4, uniform weight 0.01, dropout keep 0.5) on points
      uniform in a 0.5 m cube, then answers 2 requests through
-     ``serve.make_inference_fn``. A step must launch FPS 4, kNN 11 and the
-     ball query 1 time, a request FPS 4, kNN 11 and no ball query. Losses
+     ``serve.make_inference_fn``. A step must launch FPS 4, kNN 11, the
+     ball query 1 and the gather backward 19 times, a request FPS 4, kNN 11
+     and no ball query or gather backward. Losses
      finite, logits (4, 10240, 21) finite, and the mean in-ball count on the
      steps' l1_xyz above 1 (the repulsion term is not degenerate).
   7. Card against CPU, one seg train step at B2 x 2048 from the same weights
@@ -44,10 +45,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
      and kNN indices exact; logits within SCENE_LOGIT_RTOL (below).
  10. Timing with CUDA events after warm-up (medians): each kernel and its
      plain version at all slices' shapes, in turns, the share of pairs
-     the spatial kernel tests, and the streaming kNN on each resident
-     kNN's search (off the path, to compare the two); the B8 x 1024 cls
-     forward; the B4 x 10240 train step (p50, p90, points/s) and serve forward; one torch.profiler
-     window over 3 train steps (device-busy share, device time by kernel,
+     the spatial kernel tests, and the streaming kNN on each resident and
+     spatial kNN's search (off the path, to compare them); the gather
+     backward on a seg step's 19 gathers, each call with its sort, beside
+     index_add_; the B8 x 1024 cls forward; the B4 x 10240 train step
+     (p50, p90, points/s) and serve forward; one torch.profiler window
+     over 3 train steps (device-busy share, device time by kernel,
      the kernels' share of the step); the whole-scene request (p50, p90,
      points/s) and a profiler window over 2 requests.
  11. Slice 4, flash attention: the forward and backward kernels against
@@ -74,16 +77,27 @@ Phases (any failure raises, and the script exits non-zero with no result):
      against the cluster design at 131072; the request's 8 spatial and 2
      resident searches on those levels, each launched on its whole query
      set, against ``knn_point_chunked`` on all rows or on 2^32 / N seeded
-     ones; the stem's kNN on 4096 seeded rows against ``knn_point_chunked``
-     on the card, and the full M = N launch's rows against those; then
+     ones, and each spatial search also by the streaming kernel, off the
+     path (equal results, timed in turns with it); the stem's kNN on 4096
+     seeded rows against ``knn_point_chunked`` on the card, and the full
+     M = N launch's rows against those; then
      ``PointASNLSemSegRes(21, nl_kv_block_size=4096)`` answers a warm-up
      and 2 requests of B1 x 2228224: a request must launch the streaming
      kNN 1, the spatial kNN 8, the resident kNN 2, FPS 4 and no ball query
      or flash kernel, and return finite (1, 2228224, 21)
      logits; peak memory, p50 by CUDA events, a profiler window over one
-     request, and the times of the path's streaming kNN and FPS. This phase
-     alone: ``python3 -c "import chip_smoke as c; d = c.phase_device();
-     c.slice5(d[1], d[0], print)"``.
+     request, and the times of the path's streaming kNN (with the pairs it
+     tests) and FPS. This phase alone: ``python3 -c "import chip_smoke as c;
+     d = c.phase_device(); c.slice5(d[1], d[0], print)"``.
+ 13. Slice 6, run after phase 11 and before the timing: the gather backward
+     kernel on each of a B4 x 10240 seg step's 19 gathers (12 sorts: the
+     gathers that share indices share them), equal to the bit to its plain
+     version, to CPU float32 index_add_ and to a second launch;
+     then two seg train steps at B4 x 10240 from one state with one dropout
+     seed, dense and under nl_use_flash, whose gradients, updated parameters
+     and BN statistics must be equal to the bit; then, apart from that
+     check, one step of each under torch.use_deterministic_algorithms(True,
+     warn_only=True), printing the ops PyTorch flags.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
@@ -128,10 +142,16 @@ KERNELS = {  # "symbol": what the kernel's name holds in a profiler trace
     "flash_fwd": {"source": "pointasnl_tpu_torch/csrc/flash_attention.cu",
                   "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:90",
                   "symbol": "flash_fwd_kernel"},
-    # One backward call runs two CUDA kernels: dQ, then dK and dV.
+    # One backward call runs delta's kernel, the backward kernel (dQ, dK,
+    # dV) and, where a query tile's keys are split, the partial dQ's sum.
     "flash_bwd": {"source": "pointasnl_tpu_torch/csrc/flash_attention.cu",
                   "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:170",
-                  "symbol": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")},
+                  "symbol": ("flash_bwd_delta_kernel", "flash_bwd_kernel",
+                             "flash_bwd_dq_sum_kernel")},
+    # Not a Pallas kernel: the TPU package's deterministic gather VJP.
+    "gather_bwd": {"source": "pointasnl_tpu_torch/csrc/gather_backward.cu",
+                   "replaces": "pointasnl_tpu/ops/scatter.py:40",
+                   "symbol": "gather_backward_kernel"},
 }
 FPS_CLUSTER_SYMBOL = "fps_cluster_kernel"  # the scene-scale design of csrc/fps.cu
 FPS_GRID_SYMBOL = "fps_grid_kernel"  # its design past 131072 points
@@ -148,6 +168,11 @@ SEG_LEVELS = [SEG_N, SEG_N // 8, SEG_N // 32, SEG_N // 128, SEG_N // 256]
 SEG_KNN = [(0, 0, 32), (1, 2, 32), (2, 2, 32), (2, 3, 32), (3, 3, 32), (3, 4, 32),
            (4, 4, 32), (4, 3, 3), (3, 2, 3), (2, 1, 3), (1, 0, 3)]
 REPULSION_RADIUS, REPULSION_NSAMPLE = 0.07, 20
+# Gather backwards a seg train step launches: 22 gathers take a gradient,
+# 19 of them feed the loss (tests/test_torch_gather.py).
+SEG_GATHER_BWD = 19
+# Index tensors those 19 sort: gathers sharing indices share a plan.
+SEG_GATHER_SORTS = 12
 # Card vs CPU train step (phase 7): B2 x 2048 in a 0.4 m cube, so that the
 # 256 points of l1_xyz hold a few neighbours within 0.07.
 CMP_B, CMP_N, CMP_SIDE = 2, 2048, 0.4
@@ -222,12 +247,17 @@ BIG_LEVELS = [BIG_N, BIG_N // 8, BIG_N // 32, BIG_N // 128, BIG_N // 256]
 # (support 17408 to 278528); the resident kernel layer4_2 (8704 points) and
 # fa_layer1's three_nn; FPS the four levels, the first two in the grid design.
 BIG_LAUNCHES = {"fps": 4, "knn_resident": 2, "ball_query": 0, "knn_spatial": 8,
-                "knn_streaming": 1, "flash_fwd": 0, "flash_bwd": 0}
+                "knn_streaming": 1, "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0}
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
-# HBM bandwidth, for each kernel's bound.
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
+# on the tensor cores (dense) and HBM bandwidth, for each kernel's bound.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
+# The flash backward's products run on the tensor cores in TF32, three
+# passes a product for float32 accuracy (csrc/flash_attention.cu): its bound
+# counts each float32 operation three times at the TF32 rate.
+FLASH_BWD_TF32_PASSES = 3
 OUT_DIR = Path(__file__).resolve().parent / "build"  # gitignored
 
 
@@ -281,37 +311,43 @@ def in_turns(plain, kernel, timing=LIGHT, plain_timing=None):
     return statistics.median(k), statistics.median(p)
 
 
-def device_ms(fn, kernels, calls: int = 10):
+def device_ms(fn, kernels, calls: int = 10, tries: int = 3):
     """Median device time (ms) of one launch of each of `kernels` (a
-    substring of a CUDA kernel's name, or a tuple of them for a call that
-    launches several) over `calls` calls of fn, summed, from torch.profiler;
-    None where the profiler records no launch of one of them. Call it before
-    any profile_window: once that scheduled profiler has run, this one
-    recorded no launch on the card."""
+    substring of a CUDA kernel's name, or a tuple of those a call launches,
+    every one of them) over `calls` calls of fn, summed, from
+    torch.profiler. The profiler at times records no launch of a kernel in a
+    window: then the window is taken again, up to `tries` windows, and
+    where a kernel is still missing, None (never the sum of the others).
+    Call it before any profile_window: once that scheduled profiler has
+    run, this one recorded no launch on the card."""
     from torch.profiler import ProfilerActivity, profile
 
+    kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for kernel in (kernels,) if isinstance(kernels, str) else kernels:
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-        if 0 < len(times) < calls:
-            print(f"profiler: {len(times)} of {calls} launches of {kernel} recorded")
-        if not times:
-            return None
-        total += statistics.median(times) / 1e3
-    return total
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = {kernel: [e.time_range.elapsed_us() for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and kernel in e.name] for kernel in kernels}
+        missing = [kernel for kernel, ts in times.items() if not ts]
+        if not missing:
+            for kernel, ts in times.items():
+                if len(ts) < calls:
+                    print(f"profiler: {len(ts)} of {calls} launches of {kernel} recorded")
+            return sum(statistics.median(ts) for ts in times.values()) / 1e3
+        print(f"profiler: no launch of {', '.join(missing)} recorded; profiling again")
+    return None
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak: float = PEAK_F32_FLOPS):
     """(ms, 'bytes' or 'operations'): the least time the card could take to
-    move `nbytes` through device memory and do `ops` float32 operations."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    move `nbytes` through device memory and do `ops` operations at the rate
+    `peak` (float32 outside the tensor cores unless given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -330,11 +366,25 @@ def flash_fwd_bound(B, M, N, C, D):
     return bound(B * (M * C + N * (C + D) + M * D + M) * 4, 2 * B * M * N * (C + D))
 
 
-def flash_bwd_bound(B, M, N, C, D):
+def flash_bwd_bound(B, M, N, C, D, passes: int = FLASH_BWD_TF32_PASSES):
     # q, k, v, o, dO and lse in, dq, dk, dv out; s and dO v^T recomputed,
-    # then dQ, dK and dV: 2 M N (3C + 2D) a batch.
-    return bound(B * (2 * M * C + 2 * M * D + M + 2 * N * (C + D)) * 4,
-                 2 * B * M * N * (3 * C + 2 * D))
+    # then dQ, dK and dV: 2 M N (3C + 2D) a batch, each `passes` times on the
+    # tensor cores in TF32; passes=None counts them once at the float32 rate.
+    nbytes = B * (2 * M * C + 2 * M * D + M + 2 * N * (C + D)) * 4
+    ops = 2 * B * M * N * (3 * C + 2 * D)
+    if passes is None:
+        return bound(nbytes, ops)
+    return bound(nbytes, ops * passes, PEAK_TF32_FLOPS)
+
+
+def flash_bwd_symbols(B, M, N, C, D):
+    """The kernels one backward call launches at this shape: delta's, the
+    backward kernel and, where a query tile's keys are split, the partial
+    dQ's sum."""
+    from pointasnl_tpu_torch.ops.cuda import _build
+
+    split = _build.library().pasnl_flash_bwd_scratch(B, M, N, C, D) > 0
+    return ("flash_bwd_delta_kernel", "flash_bwd_kernel") + ("flash_bwd_dq_sum_kernel",) * split
 
 
 def ball_bound(N, M, B, nsample, idx, cnt):
@@ -516,20 +566,22 @@ def layer_indices(xyz: torch.Tensor, npoint: int, k: int):
 
 
 def counts():
-    from pointasnl_tpu_torch.ops.cuda import (ball_query, flash_attention, fps, knn, knn_spatial,
-                                              knn_streaming)
+    from pointasnl_tpu_torch.ops.cuda import (ball_query, flash_attention, fps, gather_backward,
+                                              knn, knn_spatial, knn_streaming)
 
     return {"fps": fps.launches, "knn_resident": knn.launches, "ball_query": ball_query.launches,
             "knn_spatial": knn_spatial.launches, "knn_streaming": knn_streaming.launches,
-            "flash_fwd": flash_attention.fwd_launches, "flash_bwd": flash_attention.bwd_launches}
+            "flash_fwd": flash_attention.fwd_launches, "flash_bwd": flash_attention.bwd_launches,
+            "gather_bwd": gather_backward.launches}
 
 
 def reset_counts():
-    from pointasnl_tpu_torch.ops.cuda import (ball_query, flash_attention, fps, knn, knn_spatial,
-                                              knn_streaming)
+    from pointasnl_tpu_torch.ops.cuda import (ball_query, flash_attention, fps, gather_backward,
+                                              knn, knn_spatial, knn_streaming)
 
     fps.launches = knn.launches = ball_query.launches = knn_spatial.launches = 0
     knn_streaming.launches = flash_attention.fwd_launches = flash_attention.bwd_launches = 0
+    gather_backward.launches = 0
 
 
 def phase_cls(dev):
@@ -549,7 +601,8 @@ def phase_cls(dev):
     launches = counts()
     print(f"cls slice: {REQUESTS} requests of B{BATCH}x{NUM_POINT}; launches {launches}")
     if launches != {"fps": 2 * REQUESTS, "knn_resident": 2 * REQUESTS, "ball_query": 0,
-                    "knn_spatial": 0, "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0}:
+                    "knn_spatial": 0, "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0,
+                    "gather_bwd": 0}:
         raise RuntimeError(f"cls launches {launches}, expected 2 FPS and 2 kNN a request")
 
     for r, (x, out) in enumerate(zip(clouds, logits)):
@@ -635,9 +688,11 @@ def phase_seg(dev, flash: bool = False):
     nl = 4 * flash
     if launches != {"fps": 4 * SEG_STEPS, "knn_resident": 11 * SEG_STEPS,
                     "ball_query": SEG_STEPS, "knn_spatial": 0, "knn_streaming": 0,
-                    "flash_fwd": nl * SEG_STEPS, "flash_bwd": nl * SEG_STEPS}:
+                    "flash_fwd": nl * SEG_STEPS, "flash_bwd": nl * SEG_STEPS,
+                    "gather_bwd": SEG_GATHER_BWD * SEG_STEPS}:
         raise RuntimeError(f"{label} train launches {launches}, expected FPS 4, kNN 11, "
-                           f"ball query 1, flash forward {nl} and backward {nl} a step")
+                           f"ball query 1, flash forward {nl} and backward {nl}, gather "
+                           f"backward {SEG_GATHER_BWD} a step")
     for s, m in enumerate(metrics):
         m = {k: float(v) for k, v in m.items()}
         print(f"step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in m.items()))
@@ -661,9 +716,10 @@ def phase_seg(dev, flash: bool = False):
           f"{serve_launches}")
     if serve_launches != {"fps": 4 * SEG_REQUESTS, "knn_resident": 11 * SEG_REQUESTS,
                           "ball_query": 0, "knn_spatial": 0, "knn_streaming": 0,
-                          "flash_fwd": nl * SEG_REQUESTS, "flash_bwd": 0}:
+                          "flash_fwd": nl * SEG_REQUESTS, "flash_bwd": 0, "gather_bwd": 0}:
         raise RuntimeError(f"{label} serve launches {serve_launches}, expected FPS 4, kNN 11, "
-                           f"flash forward {nl} and no ball query or flash backward a request")
+                           f"flash forward {nl} and no ball query, flash or gather backward a "
+                           f"request")
     for r, out in enumerate(logits):
         if out.shape != (SEG_B, SEG_N, SEG_CLASSES) or not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"{label} request {r}: logits {tuple(out.shape)} not all finite")
@@ -748,6 +804,129 @@ def phase_card_vs_cpu(dev, flash: bool = False):
           f"fps {l2[0]}, knn {l2[1]}; worst error / limit: loss terms "
           f"{max(worst.values()):.3f}, gradients {g_ratio:.3f}, BN stats {bn_ratio:.3f} "
           f"(limit {YARDSTICK:g} x |cpu - cpu64| + {FLOOR_RTOL:g} x scale)")
+
+
+def seg_gathers(dev):
+    """(dout, idx, n) of each gather backward of one B4 x 10240 seg train step,
+    recorded at the kernel's wrapper, in the order the step launched them."""
+    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+    from pointasnl_tpu_torch.ops.cuda import gather_backward
+
+    model = PointASNLSemSegRes(SEG_CLASSES, generator=torch.Generator().manual_seed(SEED + 3),
+                               device=dev)
+    state, step = seg_trainer(model, SEG_B)
+    cases, sorts = [], []
+    launch, segments = gather_backward.gather_backward, gather_backward.segments
+
+    def record(dout, idx, n):
+        cases.append((dout.detach().clone(), idx.clone(), n))
+        return launch(dout, idx, n)
+
+    def count(idx, n):
+        sorts.append(n)
+        return segments(idx, n)
+
+    gather_backward.gather_backward, gather_backward.segments = record, count
+    try:
+        step(state, seg_batch(210, SEG_B, SEG_N, SEG_SIDE, dev))
+    finally:
+        gather_backward.gather_backward, gather_backward.segments = launch, segments
+    torch.cuda.synchronize()
+    if len(cases) != SEG_GATHER_BWD or len(sorts) != SEG_GATHER_SORTS:
+        raise RuntimeError(f"a seg step ran {len(cases)} gather backwards on {len(sorts)} sorts, "
+                           f"expected {SEG_GATHER_BWD} on {SEG_GATHER_SORTS}")
+    return cases
+
+
+def index_add(dout, idx, n):
+    """The gather backward as one index_add_ over the flattened batch."""
+    B, R, C = dout.shape
+    flat = (idx.long() + torch.arange(B, device=idx.device)[:, None] * n).reshape(-1)
+    return torch.zeros(B * n, C, device=dout.device).index_add_(0, flat, dout.reshape(B * R, C))
+
+
+def phase_gather(dev):
+    """The gather backward kernel on each of a seg step's 19 gathers: equal to
+    the bit to its plain version on the card, to CPU float32 index_add_, and
+    to a second launch. Returns the cases, for the timing."""
+    from pointasnl_tpu_torch.ops.cuda import gather_backward
+
+    cases = seg_gathers(dev)
+    for i, (dout, idx, n) in enumerate(cases):
+        B, R, C = dout.shape
+        got = gather_backward.gather_backward(dout, idx, n)
+        again = gather_backward.gather_backward(dout, idx, n)
+        plain = gather_backward.gather_backward_reference(dout, idx, n)
+        torch.cuda.synchronize()
+        cpu = index_add(dout.cpu(), idx.cpu(), n).view(B, n, C)
+        if not (torch.equal(got, again) and torch.equal(got, plain)
+                and torch.equal(got.cpu(), cpu)):
+            raise RuntimeError(f"gather backward {i} B{B} {R} rows -> {n} C{C}: the kernel differs "
+                               f"from a second launch, its plain version or CPU index_add_")
+        print(f"gather backward {i}, B{B} {R} rows -> {n} C{C} (seg step): equal to the bit to "
+              f"the plain version, CPU index_add_ and a second launch")
+    return cases
+
+
+def phase_determinism(dev):
+    """Two seg train steps at B4 x 10240 from one state, with one dropout
+    seed, dense and under nl_use_flash: their gradients, updated parameters
+    and BN statistics must be equal to the bit. Then one diagnostic step of
+    each under torch.use_deterministic_algorithms(True, warn_only=True), apart
+    from the check, lists the ops that PyTorch flags as nondeterministic;
+    a difference raises after that."""
+    import copy
+    import warnings
+
+    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+
+    batch = seg_batch(600, SEG_B, SEG_N, SEG_SIDE, dev)
+    models, failed = {}, []
+    for flash in (False, True):
+        label = "flash seg" if flash else "seg"
+        model = PointASNLSemSegRes(SEG_CLASSES, nl_use_flash=flash,
+                                   generator=torch.Generator().manual_seed(SEED + 4), device=dev)
+        init = copy.deepcopy(model.state_dict())
+        runs = []
+        for _ in range(2):
+            model.load_state_dict(init)
+            state, step = seg_trainer(model, SEG_B)
+            torch.manual_seed(SEED + 5)  # the dropout mask, on every device
+            step(state, batch)
+            torch.cuda.synchronize()
+            runs.append(({k: p.grad.clone() for k, p in model.named_parameters()},
+                         {k: v.clone() for k, v in model.state_dict().items()}))
+        (g1, s1), (g2, s2) = runs
+        bn = [k for k in s1 if k.endswith((".mean", ".var"))]
+        groups = {"gradients": (g1, g2, list(g1)),
+                  "updated parameters": (s1, s2, [k for k in s1 if k not in bn]),
+                  "BN statistics": (s1, s2, bn)}
+        differ = {w: [k for k in keys if not torch.equal(a[k], b[k])]
+                  for w, (a, b, keys) in groups.items()}
+        print(f"determinism, {label} train step B{SEG_B}x{SEG_N}, twice from one state: " +
+              ", ".join(f"{len(keys) - len(differ[w])} of {len(keys)} {w}"
+                        for w, (_, _, keys) in groups.items()) + " equal to the bit")
+        bad = [k for keys in differ.values() for k in keys]
+        if bad:
+            failed.append(f"{label}: {len(bad)} tensors (first: {bad[0]})")
+        models[label] = (model, init)
+    for label, (model, init) in models.items():
+        model.load_state_dict(init)
+        state, step = seg_trainer(model, SEG_B)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step(state, batch)
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+        print(f"determinism, {label}: torch.use_deterministic_algorithms(warn_only=True) flags "
+              f"{len(flagged)} op(s) in a train step" + "".join(f"\n  - {m}" for m in flagged))
+    if failed:
+        raise RuntimeError("determinism: two train steps from one state differ, " +
+                           "; ".join(failed))
 
 
 def scene(seed: int, N: int, dev) -> torch.Tensor:
@@ -850,7 +1029,7 @@ def phase_scene(dev):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want = {"fps": 4 * SCENE_REQUESTS, "knn_resident": 8 * SCENE_REQUESTS, "ball_query": 0,
             "knn_spatial": 3 * SCENE_REQUESTS, "knn_streaming": 0, "flash_fwd": 0,
-            "flash_bwd": 0}
+            "flash_bwd": 0, "gather_bwd": 0}
     if launches != want:
         raise RuntimeError(f"whole-scene launches {launches}, expected FPS 4, spatial kNN 3, "
                            f"resident kNN 8 and no ball query a request")
@@ -987,8 +1166,14 @@ def spatial_bound(B, N, M, k):
     return bound(B * (N + M) * 12 + B * M * k * 8, B * M * k * 9)
 
 
-def time_kernels(dev, card):
-    """Kernel vs plain times, and bounds, at every slice's shapes."""
+def gather_bound(B, n, R, C):
+    # dout, idx and the output each once; one add a gathered element.
+    return bound(B * R * C * 4 + B * R * 4 + B * n * C * 4, B * R * C)
+
+
+def time_kernels(dev, card, gathers):
+    """Kernel vs plain times, and bounds, at every slice's shapes; `gathers`
+    are the (dout, idx, n) of a seg step's gather backwards."""
     from pointasnl_tpu_torch.ops import geometry
     from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial, knn_streaming
 
@@ -1000,8 +1185,9 @@ def time_kernels(dev, card):
         dev_ms = device_ms(kernel, symbol or KERNELS[name]["symbol"])
         if dev_ms is None:
             print(f"time {name} {shape}: the profiler saw no launch; ms is the call time")
+            extra["ms_is_call_ms"] = True
         lib_ms = statistics.median(time_ms(library, *timing)) if library else None
-        if search:  # a resident search: the streaming kernel on it too, off the path
+        if search:  # a resident or spatial search: the streaming kernel on it too, off the path
             stream = lambda: knn_streaming.knn_point(*search)
             extra["streaming_ms"] = (device_ms(stream, KERNELS["knn_streaming"]["symbol"])
                                      or statistics.median(time_ms(stream, *timing)))
@@ -1052,7 +1238,7 @@ def time_kernels(dev, card):
         tested = knn_spatial.pairs_tested(k, s, q)  # one untimed call that counts
         add("knn_spatial", "scene", f"B1 {name}", lambda: geometry.knn_point(k, s, q),
             lambda: knn_spatial.knn_point(k, s, q), spatial_bound(1, N, M, k), (10, 2), SLOW,
-            pairs_tested=tested, pairs_tested_share=tested / (N * M))
+            search=(k, s, q), pairs_tested=tested, pairs_tested_share=tested / (N * M))
     for si, qi, k in SEG_KNN:
         s, q = levels[si], levels[qi]
         N, M = s.shape[1], q.shape[1]
@@ -1087,21 +1273,53 @@ def time_kernels(dev, card):
         add("flash_bwd", "seg_flash", shape,
             lambda a=(q, k, v, o, lse, do, scale): fa.flash_backward_reference(*a),
             lambda a=(q, k, v, o, lse, do, scale): cuda_flash.flash_backward(*a),
-            flash_bwd_bound(B, M, N, C, D), timing, library=sdpa_fwd_bwd)
+            flash_bwd_bound(B, M, N, C, D), timing, symbol=flash_bwd_symbols(B, M, N, C, D),
+            library=sdpa_fwd_bwd, bound_f32_ms=flash_bwd_bound(B, M, N, C, D, None)[0])
+
+    # The seg step's gather backwards; index_add_ (atomics on the card) is
+    # the one PyTorch call computing the same sums, in another order.
+    from pointasnl_tpu_torch.ops.cuda import gather_backward
+
+    def sorted_anew(dout, idx, n):  # a call with its sort: the plan kept on idx dropped
+        idx.__dict__.pop("_gather_backward_plans", None)
+        return gather_backward.gather_backward(dout, idx, n)
+
+    for dout, idx, n in gathers:
+        B, R, C = dout.shape
+        add("gather_bwd", "seg", f"B{B} {R} rows -> {n} C{C}",
+            lambda a=(dout, idx, n): gather_backward.gather_backward_reference(*a),
+            lambda a=(dout, idx, n): sorted_anew(*a), gather_bound(B, n, R, C),
+            plain_timing=SLOW, library=lambda a=(dout, idx, n): index_add(*a))
 
     for name, rs in rows.items():
         for r in rs:
             tested = (f", pairs tested {r['pairs_tested']} ({100 * r['pairs_tested_share']:.3f} % "
                       f"of M x N)" if "pairs_tested" in r else "")
-            lib = (f", F.scaled_dot_product_attention {r['library_ms']:.4f} ms"
+            lib_name = "index_add_" if name == "gather_bwd" else "F.scaled_dot_product_attention"
+            lib = (f", {lib_name} {r['library_ms']:.4f} ms"
                    f"{' (forward and backward)' if name == 'flash_bwd' else ''}"
                    if r["library_ms"] is not None else "")
             if "streaming_ms" in r:
                 lib += f", the streaming kernel {r['streaming_ms']:.4f} ms"
-            print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms on the "
-                  f"device, {r['call_ms']:.4f} ms a call back to back, plain "
+            if "bound_f32_ms" in r:
+                tested += (f" ({FLASH_BWD_TF32_PASSES} TF32 passes on the tensor cores; at the "
+                           f"float32 rate {r['bound_f32_ms']:.5f} ms)")
+            where = "by CUDA events" if r.get("ms_is_call_ms") else "on the device"
+            print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms {where}, "
+                  f"{r['call_ms']:.4f} ms a call back to back, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
                   f"{lib}{tested}  [{card}]")
+    g = rows["gather_bwd"]
+    print(f"time gather_bwd [seg]: a step's {len(g)} calls, each with its sort, "
+          f"{sum(r['call_ms'] for r in g):.4f} ms back to back against index_add_'s "
+          f"{sum(r['library_ms'] for r in g):.4f} ms; {sum(r['ms'] for r in g):.4f} ms of it "
+          f"the kernel on the device; a step sorts {SEG_GATHER_SORTS} index tensors for them  "
+          f"[{card}]")
+    fwd, bwd = rows["flash_fwd"][0], rows["flash_bwd"][0]  # level 1
+    both = fwd["ms"] + bwd["ms"]
+    print(f"time flash [seg_flash] {fwd['shape']}: forward and backward {both:.4f} ms on the "
+          f"device against F.scaled_dot_product_attention's {bwd['library_ms']:.4f} ms (forward "
+          f"and backward), {'below' if both < bwd['library_ms'] else 'NOT below'} it  [{card}]")
     return rows
 
 
@@ -1157,13 +1375,14 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
 
     batch = seg_batch(500, SEG_B, SEG_N, SEG_SIDE, dev)
     dense = {"fps": 4, "knn": 11, "knn_spatial": 0, "knn_streaming": 0, "ball_query": 1,
-             "flash_fwd": 0, "flash_bwd": 0}
+             "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": SEG_GATHER_BWD}
     # The dense step and the same step under nl_use_flash, in turns; a flash
-    # backward is two CUDA kernels (dQ, then dK and dV).
+    # backward is three CUDA kernels at each seg level (delta, then dQ, dK
+    # and dV, then the split dQ's sum).
     seg = time_seg(card, {
         "seg": (seg_state, seg_step, seg_infer, dense, "profile_seg_step.json"),
         "flash seg": (flash_state, flash_step, flash_infer,
-                      {**dense, "flash_fwd": 4, "flash_bwd": 8}, "profile_flash_seg_step.json"),
+                      {**dense, "flash_fwd": 4, "flash_bwd": 12}, "profile_flash_seg_step.json"),
     }, batch)
     (step_p50, serve_p50), (flash_p50, flash_serve_p50) = seg["seg"], seg["flash seg"]
 
@@ -1174,8 +1393,8 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     profile_window(lambda: scene_infer(scene_x), 2,
                    {"fps": 4, "knn": 8, "knn_spatial": 3, "knn_streaming": 0, "ball_query": 0,
-                    "flash_fwd": 0, "flash_bwd": 0}, card, "whole-scene requests",
-                   "profile_whole_scene.json")
+                    "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0}, card,
+                   "whole-scene requests", "profile_whole_scene.json")
     return {"cls_forward_ms": fwd, "seg_step_ms": step_p50, "seg_serve_ms": serve_p50,
             "flash_seg_step_ms": flash_p50, "flash_seg_serve_ms": flash_serve_p50,
             "scene_ms": scene_p50}
@@ -1186,7 +1405,9 @@ PROFILE_SYMBOLS = {"fps": ("fps_kernel", FPS_CLUSTER_SYMBOL, FPS_GRID_SYMBOL),
                    "knn": ("knn_kernel",), "knn_spatial": ("knn_spatial_kernel",),
                    "knn_streaming": ("knn_stream_kernel",), "ball_query": ("ball_query_kernel",),
                    "flash_fwd": ("flash_fwd_kernel",),
-                   "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")}
+                   "flash_bwd": ("flash_bwd_delta_kernel", "flash_bwd_kernel",
+                                 "flash_bwd_dq_sum_kernel"),
+                   "gather_bwd": ("gather_backward_kernel",)}
 
 
 def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
@@ -1350,14 +1571,17 @@ def big_levels(dev):
     return levels, plain_ms
 
 
-def phase_big_searches(levels) -> dict:
+def phase_big_searches(levels, card) -> dict:
     """A B1 x BIG_N request's kNN searches but the stem's (phase_big_scene
     checks that one), each routed as in a request and launched on its whole
     query set: the rows, all of them or BIG_PAIRS // N seeded ones where the
-    plain version would take longer, held to the plain version. Returns max
-    |d2 err| by kernel."""
+    plain version would take longer, held to the plain version. The
+    streaming kernel runs each spatial search too, off the path: equal to
+    the spatial kernel, and timed beside it. Returns max |d2 err| by
+    kernel."""
     from pointasnl_tpu_torch import ops
     from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import knn_spatial, knn_streaming
 
     routes, worst = {}, {}
     for si, qi, k in SEG_KNN:
@@ -1377,6 +1601,18 @@ def phase_big_searches(levels) -> dict:
                         geometry.knn_point_chunked(k, s, q[:, rows].contiguous()))
         name = "knn_resident" if route == "resident" else f"knn_{route}"
         worst[name] = max(worst.get(name, 0.0), err)
+        if route == "spatial":  # the streaming kernel on the same search, off the path
+            spatial = lambda: knn_spatial.knn_point(k, s, q)
+            streaming = lambda: knn_streaming.knn_point(k, s, q)
+            st_d, st_i = streaming()
+            if not (torch.equal(st_i, got_i) and torch.equal(st_d, got_d)):
+                raise RuntimeError(f"streaming knn B1 {M}q/{N} k{k}: differs from the spatial "
+                                   f"kernel")
+            sp_ms, st_ms = in_turns(streaming, spatial, (4, 1))
+            print(f"time knn_spatial [scene_2228224] B1 {M}q/{N} k{k}: {sp_ms:.4f} ms a call, "
+                  f"the streaming kernel {st_ms:.4f} ms a call (equal results); in turns, by "
+                  f"CUDA events  [{card}]")
+            del st_d, st_i
         del got_d, got_i
     want = {r: BIG_LAUNCHES[f"knn_{r}"] for r in ("streaming", "spatial", "resident")}
     if routes != want:
@@ -1393,7 +1629,7 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
     from pointasnl_tpu_torch import ops
     from pointasnl_tpu_torch.models import PointASNLSemSegRes
     from pointasnl_tpu_torch.ops import geometry
-    from pointasnl_tpu_torch.ops.cuda import fps
+    from pointasnl_tpu_torch.ops.cuda import fps, knn_streaming
     from pointasnl_tpu_torch.serve import make_inference_fn
 
     model = PointASNLSemSegRes(SEG_CLASSES, nl_kv_block_size=SCENE_BLOCK,
@@ -1447,7 +1683,8 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
           f"{BIG_N / p50 * 1e3:.0f} points/s at p50; peak memory {peak:.2f} GiB  [{card}]")
     events = profile_window(lambda: infer(x), 1, {"fps": 4, "knn": 2, "knn_spatial": 8,
                                                   "knn_streaming": 1, "ball_query": 0,
-                                                  "flash_fwd": 0, "flash_bwd": 0},
+                                                  "flash_fwd": 0, "flash_bwd": 0,
+                                                  "gather_bwd": 0},
                             card, "big-scene requests", "profile_big_scene.json")
 
     # The path's streaming kNN and FPS: device ms from the profiled request
@@ -1471,20 +1708,31 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
                   FPS_CLUSTER_SYMBOL: in_request(FPS_CLUSTER_SYMBOL, 2)}
     rows_out = {"knn_streaming": [], "fps": []}
 
-    def row(name, shape, ms, call_ms, plain_ms, bnd, plain_shape=None, path="scene_2228224"):
+    def row(name, shape, ms, call_ms, plain_ms, bnd, plain_shape=None, path="scene_2228224",
+            **extra):
         rows_out[name].append({"path": path, "shape": shape, "ms": ms, "call_ms": call_ms,
                                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                                "library_ms": None,
                                **({"plain_shape": plain_shape} if plain_shape else {}),
-                               **({"ms_is_call_ms": True} if ms == call_ms else {})})
+                               **({"ms_is_call_ms": True} if ms == call_ms else {}), **extra})
+
+    # The streaming kernel prunes, so its bound is what the inputs need
+    # (spatial_bound, as for the spatial kernel), with the pairs it tested
+    # beside it; knn_bound, brute force's, stays beside it for comparison.
+    def pruned(M):
+        q = x if M == BIG_N else sub
+        tested = knn_streaming.pairs_tested(32, x, q)
+        return {"pairs_tested": tested, "pairs_tested_share": tested / (BIG_N * M),
+                "brute_bound_ms": knn_bound(1, BIG_N, M, 32)[0]}
 
     sub_ms, sub_plain_ms = in_turns(lambda: geometry.knn_point_chunked(32, x, sub),
                                     lambda: ops.knn_point(32, x, sub), (2, 1))
     row("knn_streaming", f"B1 {BIG_N}q/{BIG_N} k32 (stem, self)",
         request_ms["knn_streaming"][0] or full_ms, full_ms, sub_plain_ms,
-        knn_bound(1, BIG_N, BIG_N, 32), plain_shape=f"B1 {BIG_ROWS}q/{BIG_N} k32")
+        spatial_bound(1, BIG_N, BIG_N, 32), plain_shape=f"B1 {BIG_ROWS}q/{BIG_N} k32",
+        **pruned(BIG_N))
     row("knn_streaming", f"B1 {BIG_ROWS}q/{BIG_N} k32 (the stem's rows)", sub_ms, sub_ms,
-        sub_plain_ms, knn_bound(1, BIG_N, BIG_ROWS, 32), path="check")
+        sub_plain_ms, spatial_bound(1, BIG_N, BIG_ROWS, 32), path="check", **pruned(BIG_ROWS))
     for level, (a, n) in enumerate(zip(levels, BIG_LEVELS[1:])):
         N = a.shape[1]
         grid = fps.design(N) == "grid"
@@ -1497,9 +1745,12 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
         for r in rs:
             plain = f" on {r['plain_shape']}" if "plain_shape" in r else ""
             where = "by CUDA events" if r.get("ms_is_call_ms") else "on the device"
+            tested = (f", pairs tested {r['pairs_tested']} ({100 * r['pairs_tested_share']:.4f} % "
+                      f"of M x N), brute force's bound {r['brute_bound_ms']:.4f} ms"
+                      if "pairs_tested" in r else "")
             print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms {where}, "
                   f"{r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{plain}, "
-                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  [{card}]")
+                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}){tested}  [{card}]")
     return launches, rows_out, err
 
 
@@ -1509,7 +1760,7 @@ def slice5(dev, card, mark):
     torch.cuda.empty_cache()  # hand the earlier phases' cached blocks back
     errs = {"knn_streaming": phase_streaming(dev), "fps": 0.0}
     levels, fps_plain_ms = big_levels(dev)
-    searched = phase_big_searches(levels)
+    searched = phase_big_searches(levels, card)
     mark("slice 5 kernel checks")
     launches, rows, err = phase_big_scene(dev, card, levels, fps_plain_ms)
     errs["knn_streaming"] = max(errs["knn_streaming"], err)
@@ -1543,9 +1794,13 @@ def main() -> int:
         dev, flash=True)
     phase_card_vs_cpu(dev, flash=True)
     mark("slice 4")
+    gathers = phase_gather(dev)
+    errs["gather_bwd"] = 0.0  # equal to the bit, or phase_gather raised
+    phase_determinism(dev)
+    mark("slice 6: gather backward checks and determinism")
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     print(f"card before timing: {clocks} = {smi(clocks)}")
-    rows = time_kernels(dev, card)
+    rows = time_kernels(dev, card, gathers)
     mark("kernel timing")
     time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x,
                flash_state, flash_step, flash_infer)

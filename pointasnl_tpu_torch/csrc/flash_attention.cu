@@ -1,5 +1,5 @@
-// Flash attention, forward and backward, in float32 on the CUDA cores, for
-// Hopper (sm_90a).
+// Flash attention, forward and backward, in float32, for Hopper (sm_90a): the
+// forward on the CUDA cores, the backward on the tensor cores.
 //
 // Replaces the TPU kernels pointasnl_tpu/ops/pallas/flash_attention.py:
 // _flash_fwd_kernel (the forward) and _flash_bwd_kernel (the backward).
@@ -18,9 +18,13 @@
 // What bounds it on the card: operations. The forward does 2 B M N (C + D)
 // flops and reads K and V once per query tile; the backward 2 B M N (3C + 2D).
 // At the seg step's level 1 (B4, M 1280, N 10240, C = D = 32) that is
-// 6.7 GFLOP forward and 16.8 backward against a few MB of operands.
+// 6.7 GFLOP forward and 16.8 backward against a few MB of operands. The
+// forward's flops run on the CUDA cores at the float32 rate (67 TFLOP/s:
+// 0.100 ms); the backward's run three times each on the tensor cores at the
+// TF32 rate (495 TFLOP/s: 0.102 ms), and would take 0.250 ms at the float32
+// rate.
 //
-// What the design does about it:
+// The forward's design:
 //   - A row is held by G lanes (G = P / 16, P the next power of two >= C, D
 //     and 16): each lane keeps 16 channels of q and 16 of the output
 //     accumulator in registers, so C = D = 128 costs 32 registers of row state
@@ -29,15 +33,44 @@
 //   - Every warp of a block holds the same rows and takes its own share of
 //     each staged chunk of keys (a split over N inside the block), so a block
 //     of 8 warps covers only 32 / G rows: level 1 runs 320 blocks of 256
-//     threads on 132 SMs. The 8 partial results are merged at the end in a
-//     fixed order (online-softmax states in the forward, sums in the
-//     backward), so every run gives the same bits.
-//   - The backward is the FlashAttention-2 split: one kernel over query tiles
-//     accumulates dQ (and writes delta), one over key tiles accumulates dK and
-//     dV over every query row in registers. No atomics: each output element
-//     is written by one lane of one block.
+//     threads on 132 SMs. The 8 partial states are merged at the end in a
+//     fixed order, so every run gives the same bits.
 //   - A chunk's keys past N are skipped: they add exactly 0 and leave the
 //     running max as it was (the TPU kernel masks them to -3e38).
+//
+// The backward's design. Its four products are (64 x P) (P x 64) tiles, so
+// they run on the tensor cores, mma.sync m16n8k8 in TF32 with float32
+// accumulation. (wgmma would need the operands in shared memory in its own
+// swizzled layout, and at C = 32 a tile's products are too short to hide its
+// asynchrony; mma.sync keeps P and dS in registers between products.)
+//   - Float32 accuracy from TF32: each operand is split x = hi + lo, hi
+//     rounded to TF32, and a b = hi hi + hi lo + lo hi in three passes (the
+//     lo lo term is ~2^-22 of the product). One pass keeps ~11 bits: built
+//     with FLASH_BWD_TF32_PASSES=1, every gradient of chip_smoke.py's flash
+//     cases misses FLASH_GRAD_RTOL's limit, 4-14 times over at the seg
+//     levels, where three passes stay within 0.3 of it (PERF.md).
+//   - The FlashAttention-2 split, in one launch: a block owns 64 keys and
+//     streams every query row, accumulating dK and dV, or owns 64 query rows
+//     and streams a range of the keys, accumulating dQ. Each recomputes s and
+//     dP, so the two do 2 B M N (4C + 3D) flops against the 3C + 2D that the
+//     bound counts. The keys are split into as many ranges as make a query
+//     block stream about as many rows as a key block (8 at level 1, where
+//     N = 8 M; unsplit, the 80 query blocks streamed 160 steps each while the
+//     640 key blocks streamed 20); the ranges' partial dQ go to scratch and a
+//     small kernel adds them in range order. No atomics: every output
+//     element is written by one lane, the same bits every run. delta comes
+//     first, from its own small kernel.
+//   - The streamed rows arrive through shared memory, two stages of cp.async
+//     in flight, while the block's own rows stay in shared memory all along.
+//     Rows are padded to P + 4 floats, so each fragment load hits 32 banks.
+//   - Each p = exp(s * scale - lse) is computed once, by the lane that holds
+//     it in its accumulator fragment. That fragment of an n8 tile is the A
+//     fragment of the next product's k8 step, with k in the order 0, 2, 4,
+//     6, 1, 3, 5, 7; the streamed B rows are read in the same order, so P and
+//     dS go from one product to the next without a shuffle.
+//   - C = D = 128 and 256 split the accumulators' columns over 2 and 4
+//     blocks (each recomputing s and dP) and stream fewer rows a step, so
+//     registers and shared memory stay within an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -200,166 +233,360 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (c0 == 0) lse[qrow] = top + logf(sum);
 }
 
-// dQ over query tiles, laid out as the forward; writes delta = rowsum(dO * o).
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ lse, const float* __restrict__ dout,
-                    float* __restrict__ dq, float* __restrict__ delta,
-                    int m, int n, int c, int d, float scale) {
-  using T = Tile<G>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sk = smem;
-  float* sv = sk + T::kChunk * T::P;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = (lane % G) * kPerLane;
-  const int row = blockIdx.x * T::kRows + lane / G;
-  const int b = blockIdx.y;
-  const bool live = row < m;
-  const size_t qrow = (size_t)b * m + (live ? row : 0);
+// ---------------------------------------------------------------------------
+// The backward: delta = rowsum(dO * o), then dQ, dK and dV on the tensor cores.
 
-  float qr[kPerLane], dor[kPerLane], acc[kPerLane];
-  load_row(qr, q + qrow * c, live, c0, c);
-  load_row(acc, o + qrow * d, live, c0, d);  // o, for delta only
-  load_row(dor, dout + qrow * d, live, c0, d);
-  float dl = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) dl = fmaf(dor[i], acc[i], dl);
-  dl = group_sum<G>(dl);
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
-  const float L = live ? lse[qrow] : 0.0f;
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kOwn = kBwdWarps * 16;  // rows a block owns: 16 a warp, the mma's M
+constexpr int kMaxSplits = 16;        // key ranges a query tile's dQ is split into
 
-  const float* kb = k + (size_t)b * n * c;
-  const float* vb = v + (size_t)b * n * d;
-  for (int base = 0; base < n; base += T::kChunk) {
-    __syncthreads();
-    stage<T::P>(sk, kb, base, n, c, T::kChunk);
-    stage<T::P>(sv, vb, base, n, d, T::kChunk);
-    __syncthreads();
-    const int j0 = warp * T::kSub;
-    const int cnt = min(T::kSub, n - base - j0);
-#pragma unroll
-    for (int j = 0; j < T::kSub; ++j) {
-      if (j < cnt) {
-        const float s = dot_row<G>(qr, sk + (j0 + j) * T::P + c0) * scale;
-        const float dp = dot_row<G>(dor, sv + (j0 + j) * T::P + c0);
-        const float p = expf(s - L);
-        const float ds = p * (dp - dl) * scale;
-        axpy_row(acc, ds, sk + (j0 + j) * T::P + c0);
-      }
-    }
-  }
+// Tiles of the backward, for C and D zero-padded to P (16, 32, 64, 128 or 256).
+template <int P>
+struct Bwd {
+  static constexpr int kStride = P + 4;  // floats a row in shared memory: no bank conflicts
+  static constexpr int kStream = P <= 32 ? 64 : 2048 / P;  // rows streamed a step: 64 ... 8
+  static constexpr int kCols = P < 64 ? P : 64;  // accumulator columns a block
+  static constexpr int kChunks = P / kCols;      // blocks a tile, one for each column chunk
+  static constexpr int kOwnFloats = 2 * kOwn * kStride;
+  // A stage: the two streamed operands, then (keys' blocks only) lse and delta.
+  static constexpr int kStageFloats = 2 * kStream * kStride + 2 * kStream;
+  static constexpr size_t kSmem = (size_t)(kOwnFloats + 2 * kStageFloats) * sizeof(float);
+};
 
-  __syncthreads();
-  float* red = smem;  // [warp][kPerLane][32]
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) red[(warp * kPerLane + i) * 32 + lane] = acc[i];
-  __syncthreads();
-  if (warp != 0 || !live) return;
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    float sum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) sum += red[(w * kPerLane + i) * 32 + lane];
-    if (c0 + i < c) dq[qrow * c + c0 + i] = sum;
-  }
-  if (c0 == 0) delta[qrow] = dl;
+// x = hi + lo: hi is x rounded to tf32 (10 mantissa bits, ties away from
+// zero), lo the exact float32 rest, whose low 13 bits the tensor core drops.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// dK and dV over key tiles: a row's G lanes hold one key, the block's warps
-// split the query rows.
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ lse,
-                      const float* __restrict__ delta, const float* __restrict__ dout,
-                      float* __restrict__ dk, float* __restrict__ dv,
-                      int m, int n, int c, int d, float scale) {
-  using T = Tile<G>;
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The backward ships with 3 passes. A build with -DFLASH_BWD_TF32_PASSES=1
+// keeps the hi hi pass alone, to measure what the tolerance catches
+// (scripts/torch_flash_tf32_passes.py).
+#ifndef FLASH_BWD_TF32_PASSES
+#define FLASH_BWD_TF32_PASSES 3
+#endif
+static_assert(FLASH_BWD_TF32_PASSES == 1 || FLASH_BWD_TF32_PASSES == 3,
+              "the flash backward takes 1 or 3 TF32 passes");
+
+// d += a b in three tf32 passes, the small terms first: lo hi, hi lo, hi hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  if (FLASH_BWD_TF32_PASSES == 3) {
+    mma_tf32(d, alo, bh0, bh1);
+    mma_tf32(d, ahi, bl0, bl1);
+  }
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying rows [row0, row0 + count) of a (*, width) matrix into dst,
+// `stride` floats a row, columns below width; 16 bytes a copy where the
+// rows allow it.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int count,
+                                           int width, int stride) {
+  src += (size_t)row0 * width;
+  if ((width & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int per_row = width >> 2;
+    for (int u = threadIdx.x; u < count * per_row; u += kBwdThreads) {
+      const int r = u / per_row, c4 = (u - r * per_row) << 2;
+      cp_async16(dst + r * stride + c4, src + (size_t)r * width + c4);
+    }
+  } else {
+    for (int u = threadIdx.x; u < count * width; u += kBwdThreads) {
+      const int r = u / width, c = u - r * width;
+      cp_async4(dst + r * stride + c, src + (size_t)r * width + c);
+    }
+  }
+}
+
+// Rows [row0, row0 + kOwn) of a (rows, width) matrix into dst, zero past
+// `rows` and `width`.
+template <int P>
+__device__ __forceinline__ void load_own(float* dst, const float* src, int row0, int rows,
+                                         int width) {
+  for (int i = threadIdx.x; i < kOwn * P; i += kBwdThreads) {
+    const int r = i / P, c = i % P;
+    const int g = row0 + r;
+    dst[r * Bwd<P>::kStride + c] = (g < rows && c < width) ? src[(size_t)g * width + c] : 0.0f;
+  }
+}
+
+// dq = the sum of the splits' partial dQ, in split order.
+__global__ void flash_bwd_dq_sum_kernel(const float* __restrict__ part, float* __restrict__ dq,
+                                        long long count, int splits) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += stride) {
+    float s = part[i];
+    for (int sp = 1; sp < splits; ++sp) s += part[sp * count + i];
+    dq[i] = s;
+  }
+}
+
+__global__ void flash_bwd_delta_kernel(const float* __restrict__ o,
+                                       const float* __restrict__ dout,
+                                       float* __restrict__ delta, int rows, int d) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* a = o + (size_t)r * d;
+  const float* g = dout + (size_t)r * d;
+  float s = 0.0f;
+  for (int i = 0; i < d; ++i) s = fmaf(g[i], a[i], s);
+  delta[r] = s;
+}
+
+// One block of the backward. kDQ: it owns 64 query rows and streams the
+// keys [s_begin, s_end), accumulating dQ = dS K. Otherwise it owns 64 keys
+// and streams every query row, accumulating dK = dS^T q and dV = P^T dO. The
+// two roles are one computation with the operands swapped: X1, X2 are the
+// block's own rows of (q, dO) or (k, v), Y1, Y2 the streamed rows of (k, v)
+// or (q, dO); S = X1 Y1^T, dP = X2 Y2^T, then acc1 += dS Y1, written to
+// out1 (dQ or its split's part, or dK), and (keys) acc2 += P Y2, written to
+// dv, over the accumulators' column chunk [col0, col0 + kCols).
+template <int P, bool kDQ>
+__device__ __forceinline__ void bwd_tile(const float* __restrict__ q, const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         const float* __restrict__ dout,
+                                         float* __restrict__ out1, float* __restrict__ dv, int m,
+                                         int n, int c, int d, float scale, int tile, int chunk,
+                                         int s_begin, int s_end) {
+  using T = Bwd<P>;
+  constexpr int S = T::kStride;
+  constexpr int kJ = T::kStream / 8;  // n8 tiles of S and dP
+  constexpr int kN = T::kCols / 8;    // n8 tiles of the accumulators
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* sq = smem;
-  float* sdo = sq + T::kChunk * T::P;
-  float* sl = sdo + T::kChunk * T::P;
-  float* sdl = sl + T::kChunk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = (lane % G) * kPerLane;
-  const int key = blockIdx.x * T::kRows + lane / G;
+  float* x1 = smem;
+  float* x2 = x1 + kOwn * S;
+  float* stages = smem + T::kOwnFloats;
   const int b = blockIdx.y;
-  const bool live = key < n;
-  const size_t krow = (size_t)b * n + (live ? key : 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // the mma fragments' group and thread in group
+  const int own_rows = kDQ ? m : n, stream_rows = kDQ ? n : m;
+  const float* X1 = (kDQ ? q : k) + (size_t)b * own_rows * c;
+  const float* X2 = (kDQ ? dout : v) + (size_t)b * own_rows * d;
+  const float* Y1 = (kDQ ? k : q) + (size_t)b * stream_rows * c;
+  const float* Y2 = (kDQ ? v : dout) + (size_t)b * stream_rows * d;
+  const float* L = lse + (size_t)b * m;
+  const float* Dl = delta + (size_t)b * m;
+  const int own0 = tile * kOwn, col0 = chunk * T::kCols;
 
-  float kr[kPerLane], vr[kPerLane], dkr[kPerLane], dvr[kPerLane];
-  load_row(kr, k + krow * c, live, c0, c);
-  load_row(vr, v + krow * d, live, c0, d);
+  // Zero the stages (a ragged last step leaves finite rows of an earlier
+  // step past its end, which the mask below drops), and load the own rows.
+  for (int i = threadIdx.x; i < 2 * T::kStageFloats; i += kBwdThreads) stages[i] = 0.0f;
+  load_own<P>(x1, X1, own0, own_rows, c);
+  load_own<P>(x2, X2, own0, own_rows, d);
+  float lse_row[2] = {0.0f, 0.0f}, delta_row[2] = {0.0f, 0.0f};
+  if (kDQ) {
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) dkr[i] = dvr[i] = 0.0f;
-
-  const float* qb = q + (size_t)b * m * c;
-  const float* db = dout + (size_t)b * m * d;
-  for (int base = 0; base < m; base += T::kChunk) {
-    __syncthreads();
-    stage<T::P>(sq, qb, base, m, c, T::kChunk);
-    stage<T::P>(sdo, db, base, m, d, T::kChunk);
-    for (int i = threadIdx.x; i < T::kChunk; i += kThreads) {
-      const bool in = base + i < m;
-      sl[i] = in ? lse[(size_t)b * m + base + i] : 0.0f;
-      sdl[i] = in ? delta[(size_t)b * m + base + i] : 0.0f;
-    }
-    __syncthreads();
-    const int r0 = warp * T::kSub;
-    const int cnt = min(T::kSub, m - base - r0);
-#pragma unroll
-    for (int r = 0; r < T::kSub; ++r) {
-      if (r < cnt) {
-        const float s = dot_row<G>(kr, sq + (r0 + r) * T::P + c0) * scale;
-        const float dp = dot_row<G>(vr, sdo + (r0 + r) * T::P + c0);
-        const float p = expf(s - sl[r0 + r]);
-        const float ds = p * (dp - sdl[r0 + r]) * scale;
-        axpy_row(dvr, p, sdo + (r0 + r) * T::P + c0);
-        axpy_row(dkr, ds, sq + (r0 + r) * T::P + c0);
+    for (int h = 0; h < 2; ++h) {
+      const int row = own0 + warp * 16 + g + 8 * h;
+      if (row < m) {
+        lse_row[h] = L[row];
+        delta_row[h] = Dl[row];
       }
     }
   }
+  __syncthreads();
 
-  __syncthreads();
-  float* red = smem;  // [warp][2 * kPerLane][32]
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    red[(warp * 2 * kPerLane + i) * 32 + lane] = dkr[i];
-    red[(warp * 2 * kPerLane + kPerLane + i) * 32 + lane] = dvr[i];
-  }
-  __syncthreads();
-  if (warp != 0 || !live) return;
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    float sk = 0.0f, sv = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      sk += red[(w * 2 * kPerLane + i) * 32 + lane];
-      sv += red[(w * 2 * kPerLane + kPerLane + i) * 32 + lane];
+  const int steps = (s_end - s_begin + T::kStream - 1) / T::kStream;
+  auto issue = [&](int step) {
+    float* st = stages + (step & 1) * T::kStageFloats;
+    const int r0 = s_begin + step * T::kStream;
+    const int cnt = min(T::kStream, s_end - r0);
+    stage_rows(st, Y1, r0, cnt, c, S);
+    stage_rows(st + T::kStream * S, Y2, r0, cnt, d, S);
+    if (!kDQ) {
+      for (int i = threadIdx.x; i < cnt; i += kBwdThreads) {
+        cp_async4(st + 2 * T::kStream * S + i, L + r0 + i);
+        cp_async4(st + 2 * T::kStream * S + T::kStream + i, Dl + r0 + i);
+      }
     }
-    if (c0 + i < c) dk[krow * c + c0 + i] = sk;
-    if (c0 + i < d) dv[krow * d + c0 + i] = sv;
+    cp_async_commit();
+  };
+
+  float acc1[kN][4], acc2[kN][4];
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc1[j][i] = acc2[j][i] = 0.0f;
+  const float* a1 = x1 + warp * 16 * S;
+  const float* a2 = x2 + warp * 16 * S;
+
+  issue(0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      issue(step + 1);  // into the other stage, which the last step has released
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* y1 = stages + (step & 1) * T::kStageFloats;
+    const float* y2 = y1 + T::kStream * S;
+    const float* sl = y2 + T::kStream * S;
+    const float* sd = sl + T::kStream;
+
+    // S = X1 Y1^T and dP = X2 Y2^T, (16 own rows) x (kStream streamed) a warp.
+    float s[kJ][4], dp[kJ][4];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < P / 8; ++kk) {
+      uint32_t hi[4], lo[4];
+      const float* a = a1 + g * S + kk * 8 + t;
+      split(a[0], hi[0], lo[0]);
+      split(a[8 * S], hi[1], lo[1]);
+      split(a[4], hi[2], lo[2]);
+      split(a[8 * S + 4], hi[3], lo[3]);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float* bp = y1 + (j * 8 + g) * S + kk * 8 + t;
+        mma3(s[j], hi, lo, bp[0], bp[4]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < P / 8; ++kk) {
+      uint32_t hi[4], lo[4];
+      const float* a = a2 + g * S + kk * 8 + t;
+      split(a[0], hi[0], lo[0]);
+      split(a[8 * S], hi[1], lo[1]);
+      split(a[4], hi[2], lo[2]);
+      split(a[8 * S + 4], hi[3], lo[3]);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float* bp = y2 + (j * 8 + g) * S + kk * 8 + t;
+        mma3(dp[j], hi, lo, bp[0], bp[4]);
+      }
+    }
+
+    // p = exp(s * scale - lse), once an element; dS = p (dP - delta) scale.
+    // A fragment element i sits at own row g + 8 (i / 2) and streamed row
+    // 8 j + 2 t + (i % 2); streamed rows past the end get p = 0.
+    const int r0 = s_begin + step * T::kStream;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = j * 8 + 2 * t + (i & 1);
+        const float lv = kDQ ? lse_row[i >> 1] : sl[col];
+        const float dv_ = kDQ ? delta_row[i >> 1] : sd[col];
+        const float p = r0 + col < s_end ? expf(s[j][i] * scale - lv) : 0.0f;
+        dp[j][i] = p * (dp[j][i] - dv_) * scale;
+        s[j][i] = p;
+      }
+    }
+
+    // acc1 += dS Y1, acc2 += P Y2 over the streamed rows. The C fragment of
+    // an n8 tile is the A fragment of a k8 step whose k runs over the
+    // streamed rows in the order 0, 2, 4, 6, 1, 3, 5, 7, so B is read in
+    // that order too: no shuffle.
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      uint32_t dh[4], dl[4], ph[4], pl[4];
+      split(dp[j][0], dh[0], dl[0]);
+      split(dp[j][2], dh[1], dl[1]);
+      split(dp[j][1], dh[2], dl[2]);
+      split(dp[j][3], dh[3], dl[3]);
+      if (!kDQ) {
+        split(s[j][0], ph[0], pl[0]);
+        split(s[j][2], ph[1], pl[1]);
+        split(s[j][1], ph[2], pl[2]);
+        split(s[j][3], ph[3], pl[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kN; ++nt) {
+        const int off = (j * 8 + 2 * t) * S + col0 + nt * 8 + g;
+        mma3(acc1[nt], dh, dl, y1[off], y1[off + S]);
+        if (!kDQ) mma3(acc2[nt], ph, pl, y2[off], y2[off + S]);
+      }
+    }
+    __syncthreads();  // this stage is read; the next step's copy may refill it
+  }
+
+  // acc1 is dQ (query blocks) or dK, both of width c; acc2 is dV, width d.
+  out1 += (size_t)b * own_rows * c;
+  float* out2 = dv + (size_t)b * n * d;
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = own0 + warp * 16 + g + 8 * (i >> 1);
+      const int col = col0 + nt * 8 + 2 * t + (i & 1);
+      if (row < own_rows) {
+        if (col < c) out1[(size_t)row * c + col] = acc1[nt][i];
+        if (!kDQ && col < d) out2[(size_t)row * d + col] = acc2[nt][i];
+      }
+    }
+  }
+}
+
+// Blocks [0, q_blocks * splits * kChunks) own query tiles (dQ), the rest
+// key tiles (dK, dV). A query tile's keys are split into ranges of
+// split_rows, so that its blocks stream about as many rows as a key tile's
+// (the queries): with splits > 1 each writes its partial dQ to its part of
+// dq_part (splits, B, M, C), which flash_bwd_dq_sum_kernel adds in order.
+template <int P>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const float* __restrict__ dout,
+                 float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                 float* __restrict__ dq_part, int m, int n, int c, int d, float scale,
+                 int q_blocks, int splits, int split_rows) {
+  constexpr int kC = Bwd<P>::kChunks;
+  const int x = blockIdx.x;
+  if (x < q_blocks * splits * kC) {
+    const int chunk = x % kC, split = x / kC % splits, tile = x / kC / splits;
+    const int s0 = split * split_rows;
+    float* out = splits > 1 ? dq_part + (size_t)split * gridDim.y * m * c : dq;
+    bwd_tile<P, true>(q, k, v, lse, delta, dout, out, dv, m, n, c, d, scale, tile, chunk, s0,
+                      min(n, s0 + split_rows));
+  } else {
+    const int y = x - q_blocks * splits * kC;
+    bwd_tile<P, false>(q, k, v, lse, delta, dout, dk, dv, m, n, c, d, scale, y / kC, y % kC, 0,
+                       m);
   }
 }
 
 size_t fwd_smem(int p, int chunk) {
   const size_t stage = (size_t)2 * chunk * p * sizeof(float);
   const size_t merge = (size_t)kWarps * (kPerLane + 2) * 32 * sizeof(float);
-  return stage > merge ? stage : merge;
-}
-
-size_t dq_smem(int p, int chunk) {
-  const size_t stage = (size_t)2 * chunk * p * sizeof(float);
-  const size_t merge = (size_t)kWarps * kPerLane * 32 * sizeof(float);
-  return stage > merge ? stage : merge;
-}
-
-size_t dkdv_smem(int p, int chunk) {
-  const size_t stage = ((size_t)2 * chunk * p + 2 * chunk) * sizeof(float);
-  const size_t merge = (size_t)kWarps * 2 * kPerLane * 32 * sizeof(float);
   return stage > merge ? stage : merge;
 }
 
@@ -381,23 +608,52 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse, in
   return (int)cudaGetLastError();
 }
 
-template <int G>
+// How a query tile's keys are split: into `splits` ranges of split_rows
+// keys, so that a dQ block streams about as many steps as a key block.
+template <int P>
+void bwd_split(int m, int n, int& splits, int& split_rows) {
+  constexpr int S = Bwd<P>::kStream;
+  const int q_steps = (n + S - 1) / S, k_steps = (m + S - 1) / S;
+  int want = (q_steps + k_steps - 1) / k_steps;
+  want = want < 1 ? 1 : want > kMaxSplits ? kMaxSplits : want;
+  split_rows = (q_steps + want - 1) / want * S;
+  splits = (n + split_rows - 1) / split_rows;
+}
+
+template <int P>
+long long bwd_scratch(int b, int m, int n, int c) {
+  int splits, split_rows;
+  bwd_split<P>(m, n, splits, split_rows);
+  return splits > 1 ? (long long)splits * b * m * c : 0;
+}
+
+template <int P>
 int bwd(const float* q, const float* k, const float* v, const float* o, const float* lse,
-        const float* dout, float* dq, float* dk, float* dv, float* delta, int b, int m, int n,
-        int c, int d, float scale, cudaStream_t stream) {
-  using T = Tile<G>;
-  const size_t s1 = dq_smem(T::P, T::kChunk), s2 = dkdv_smem(T::P, T::kChunk);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<G>, s1);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dkdv_kernel<G>, s2);
+        const float* dout, float* dq, float* dk, float* dv, float* delta, float* dq_part, int b,
+        int m, int n, int c, int d, float scale, cudaStream_t stream) {
+  using T = Bwd<P>;
+  int splits, split_rows;
+  bwd_split<P>(m, n, splits, split_rows);
+  if (splits > 1 && dq_part == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_bwd_kernel<P>, T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 g1((m + T::kRows - 1) / T::kRows, b), g2((n + T::kRows - 1) / T::kRows, b);
-  flash_bwd_dq_kernel<G><<<g1, kThreads, s1, stream>>>(q, k, v, o, lse, dout, dq, delta, m, n,
-                                                         c, d, scale);
+  const int rows = b * m;
+  flash_bwd_delta_kernel<<<(rows + 255) / 256, 256, 0, stream>>>(o, dout, delta, rows, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // Same stream: delta is written before the dK/dV kernel reads it.
-  flash_bwd_dkdv_kernel<G><<<g2, kThreads, s2, stream>>>(q, k, v, lse, delta, dout, dk, dv, m,
-                                                           n, c, d, scale);
+  // Same stream: delta is written before the backward kernel reads it, and
+  // the partial dQ before they are added.
+  const int q_blocks = (m + kOwn - 1) / kOwn, k_blocks = (n + kOwn - 1) / kOwn;
+  const dim3 grid((q_blocks * splits + k_blocks) * T::kChunks, b);
+  flash_bwd_kernel<P><<<grid, kBwdThreads, T::kSmem, stream>>>(
+      q, k, v, lse, delta, dout, dq, dk, dv, dq_part, m, n, c, d, scale, q_blocks, splits,
+      split_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long count = (long long)b * m * c;
+  const long long want = (count + 255) / 256;
+  flash_bwd_dq_sum_kernel<<<(int)(want < 132 * 16 ? want : 132 * 16), 256, 0, stream>>>(
+      dq_part, dq, count, splits);
   return (int)cudaGetLastError();
 }
 
@@ -407,6 +663,15 @@ int lanes_for(int c, int d) {
   int g = 1;
   while (kPerLane * g < w) g *= 2;
   return g;
+}
+
+// The backward's padded width: the next power of two >= C, D and 16.
+int padded_width(int c, int d) {
+  const int w = c > d ? c : d;
+  if (w < 1 || w > kMaxWidth) return 0;
+  int p = 16;
+  while (p < w) p *= 2;
+  return p;
 }
 
 }  // namespace
@@ -430,19 +695,37 @@ int pasnl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* 
   }
 }
 
+// Floats of scratch the backward needs for its partial dQ (0: none).
+long long pasnl_flash_bwd_scratch(int b, int m, int n, int c, int d) {
+  switch (padded_width(c, d)) {
+    case 16: return bwd_scratch<16>(b, m, n, c);
+    case 32: return bwd_scratch<32>(b, m, n, c);
+    case 64: return bwd_scratch<64>(b, m, n, c);
+    case 128: return bwd_scratch<128>(b, m, n, c);
+    case 256: return bwd_scratch<256>(b, m, n, c);
+    default: return 0;
+  }
+}
+
 int pasnl_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                    const void* dout, void* dq, void* dk, void* dv, void* delta, int b, int m,
-                    int n, int c, int d, float scale, void* stream) {
+                    const void* dout, void* dq, void* dk, void* dv, void* delta, void* dq_part,
+                    int b, int m, int n, int c, int d, float scale, void* stream) {
   const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
   const float *of = (const float*)o, *lf = (const float*)lse, *df = (const float*)dout;
   float *dqf = (float*)dq, *dkf = (float*)dk, *dvf = (float*)dv, *dlf = (float*)delta;
+  float* pf = (float*)dq_part;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes_for(c, d)) {
-    case 1: return bwd<1>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, b, m, n, c, d, scale, s);
-    case 2: return bwd<2>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, b, m, n, c, d, scale, s);
-    case 4: return bwd<4>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, b, m, n, c, d, scale, s);
-    case 8: return bwd<8>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, b, m, n, c, d, scale, s);
-    case 16: return bwd<16>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, b, m, n, c, d, scale, s);
+  switch (padded_width(c, d)) {
+    case 16:
+      return bwd<16>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, pf, b, m, n, c, d, scale, s);
+    case 32:
+      return bwd<32>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, pf, b, m, n, c, d, scale, s);
+    case 64:
+      return bwd<64>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, pf, b, m, n, c, d, scale, s);
+    case 128:
+      return bwd<128>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, pf, b, m, n, c, d, scale, s);
+    case 256:
+      return bwd<256>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, dlf, pf, b, m, n, c, d, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

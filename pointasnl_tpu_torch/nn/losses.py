@@ -18,8 +18,11 @@ from pointasnl_tpu_torch.nn.layers import Dense
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log p of each label. The label's log-probability is picked by a
+    one-hot product, the same value to the bit as a gather, so that its
+    gradient is an elementwise product and not a scatter."""
     logp = F.log_softmax(logits.float(), dim=-1)
-    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -(logp * F.one_hot(labels.long(), logp.shape[-1]).to(logp.dtype)).sum(dim=-1)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -60,17 +60,22 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.pasnl_fps_grid.argtypes = [p, p, p, i, i, i, p]
     lib.pasnl_fps_grid.restype = i
-    for name in ("pasnl_knn", "pasnl_knn_streaming"):
-        getattr(lib, name).argtypes = [p, p, p, p, i, i, i, i, p]
-        getattr(lib, name).restype = i
+    lib.pasnl_knn.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.pasnl_knn.restype = i
     lib.pasnl_ball_query.argtypes = [p, p, p, p, i, i, i, i, f, p]
     lib.pasnl_ball_query.restype = i
     lib.pasnl_knn_spatial.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.pasnl_knn_spatial.restype = i
+    lib.pasnl_knn_streaming.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.pasnl_knn_streaming.restype = i
     lib.pasnl_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
     lib.pasnl_flash_fwd.restype = i
-    lib.pasnl_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.pasnl_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
     lib.pasnl_flash_bwd.restype = i
+    lib.pasnl_flash_bwd_scratch.argtypes = [i, i, i, i, i]
+    lib.pasnl_flash_bwd_scratch.restype = ctypes.c_longlong
+    lib.pasnl_gather_backward.argtypes = [p, p, p, p, ctypes.c_longlong, i, p]
+    lib.pasnl_gather_backward.restype = i
     for name in ("pasnl_fps_max_n", "pasnl_fps_cluster_max_n", "pasnl_fps_grid_max_n",
                  "pasnl_fps_grid_blocks", "pasnl_fps_grid_slot_bytes", "pasnl_knn_max_n",
                  "pasnl_knn_max_k", "pasnl_knn_streaming_max_n", "pasnl_knn_streaming_max_k",

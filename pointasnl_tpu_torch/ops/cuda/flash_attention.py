@@ -3,8 +3,10 @@
 Replaces ``pointasnl_tpu/ops/pallas/flash_attention.py`` (``_flash_fwd_kernel``
 and ``_flash_bwd_kernel``). The plain versions it is held against are
 ``ops.flash_attention.flash_forward_reference`` and
-``flash_backward_reference``. One backward call launches two CUDA kernels,
-dQ and then dK/dV, and counts as one launch of the backward.
+``flash_backward_reference``. One backward call launches delta's kernel,
+then the backward kernel (dQ, dK and dV) and, where a query tile's keys are
+split, the fixed-order sum of the partial dQ; it counts as one launch of the
+backward.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from pointasnl_tpu_torch.ops.cuda import _build
 
 fwd_launches = 0  # forward kernel launches made by this process
-bwd_launches = 0  # backward launches (dQ and dK/dV kernels together)
+bwd_launches = 0  # backward launches (its two or three kernels together)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
@@ -76,12 +78,15 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     dv = torch.empty((B, N, D), dtype=torch.float32, device=q.device)
     delta = torch.empty((B, M), dtype=torch.float32, device=q.device)
     lib = _build.library()
+    scratch = lib.pasnl_flash_bwd_scratch(B, M, N, C, D)  # the splits' partial dQ
+    dq_part = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.pasnl_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                          lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                                         dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, M, N,
-                                         C, D, scale, stream),
+                                         dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                                         dq_part.data_ptr() if scratch else None, B, M, N, C, D,
+                                         scale, stream),
                      "flash attention backward kernels")
     bwd_launches += 1
     return dq, dk, dv

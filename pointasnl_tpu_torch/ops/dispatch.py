@@ -10,22 +10,28 @@
     with k <= 128, and the streaming kernel for the rest.
   - Any other device raises.
 
-The gathers are plain index gathers on every device: their backward is
-autograd's scatter-add, which uses atomics on the card, so gradients there
-vary in their last bits from run to run. ``sampling``, ``grouping``,
-``three_nn``, ``three_interpolate_idw`` and ``repulsion_loss`` reach the
-kernels through the routed FPS, kNN and ball query; ``three_nn`` is the kNN
-kernel with k = 3 (its padding for fewer than 3 points stays in
+The gathers' forward is the plain index gather on every device, as JAX
+computes it outside any kernel. A CUDA tensor that needs a gradient takes
+``GatherPoint``, whose backward is the deterministic gather-backward kernel
+(``ops.cuda.gather_backward``), in place of autograd's scatter-add, whose
+atomics add in an order that changes from run to run. An integer gather, or
+one outside autograd, stays plain. ``sampling``, ``grouping``, ``three_nn``,
+``three_interpolate``, ``three_interpolate_idw`` and ``repulsion_loss`` reach
+the kernels through the routed FPS, kNN, ball query and gathers, passed to
+the plain helpers as the JAX package passes ``group_point_fn``; ``three_nn``
+is the kNN kernel with k = 3 (its padding for fewer than 3 points stays in
 ``geometry.three_nn``, on the kernel's output).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from pointasnl_tpu_torch.ops import geometry as _g
 from pointasnl_tpu_torch.ops.cuda import ball_query as _cuda_ball
 from pointasnl_tpu_torch.ops.cuda import fps as _cuda_fps
+from pointasnl_tpu_torch.ops.cuda import gather_backward as _cuda_gather
 from pointasnl_tpu_torch.ops.cuda import knn as _cuda_knn
 from pointasnl_tpu_torch.ops.cuda import knn_spatial as _cuda_spatial
 from pointasnl_tpu_torch.ops.cuda import knn_streaming as _cuda_streaming
@@ -35,9 +41,6 @@ from pointasnl_tpu_torch.ops.cuda import knn_streaming as _cuda_streaming
 RESIDENT_MAX_N, RESIDENT_MAX_K = 12288, 128
 
 pairwise_sqdist = _g.pairwise_sqdist
-gather_point = _g.gather_point
-group_point = _g.group_point
-three_interpolate = _g.three_interpolate
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -46,6 +49,45 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{op}: no implementation for device {t.device}")
+
+
+class GatherPoint(torch.autograd.Function):
+    """gather_point with the gather-backward kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return _g.gather_point(points, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        (idx,) = ctx.saved_tensors
+        return _cuda_gather.gather_backward(dout, idx, ctx.n), None
+
+
+def gather_point(points, idx):
+    if (_on_cuda(points, "gather_point") and points.requires_grad
+            and torch.is_grad_enabled()):
+        return GatherPoint.apply(points, idx)
+    return _g.gather_point(points, idx)
+
+
+gather_point.__doc__ = _g.gather_point.__doc__
+
+
+def group_point(points, idx):
+    return _g.group_point(points, idx, gather_point_fn=gather_point)
+
+
+group_point.__doc__ = _g.group_point.__doc__
+
+
+def three_interpolate(points, idx, weight):
+    """Weighted sum of 3 neighbours (see geometry.three_interpolate); the
+    gather goes through dispatch."""
+    return _g.three_interpolate(points, idx, weight, group_point_fn=group_point)
 
 
 def farthest_point_sample(npoint, xyz):
@@ -115,22 +157,28 @@ def three_nn(xyz1, xyz2):
 
 def three_interpolate_idw(xyz1, xyz2, points2):
     """IDW interpolation (see geometry.three_interpolate_idw); the search
-    goes through dispatch."""
-    return _g.three_interpolate_idw(xyz1, xyz2, points2, three_nn_fn=three_nn)
+    and the gather go through dispatch."""
+    return _g.three_interpolate_idw(xyz1, xyz2, points2, three_nn_fn=three_nn,
+                                    group_point_fn=group_point)
 
 
 def repulsion_loss(pred, nsample=20, radius=0.07, h=0.03):
-    """Repulsion loss (see geometry.repulsion_loss); the ball query goes
-    through dispatch."""
-    return _g.repulsion_loss(pred, nsample, radius, h, ball_query=query_ball_point)
+    """Repulsion loss (see geometry.repulsion_loss); the ball query and the
+    gather go through dispatch."""
+    return _g.repulsion_loss(pred, nsample, radius, h, ball_query=query_ball_point,
+                             group_point_fn=group_point)
 
 
 def sampling(npoint, pts, feature=None):
-    """FPS + gather (see geometry.sampling); FPS goes through dispatch."""
-    return _g.sampling(npoint, pts, feature, fps=farthest_point_sample)
+    """FPS + gather (see geometry.sampling); FPS and the gathers go through
+    dispatch."""
+    return _g.sampling(npoint, pts, feature, fps=farthest_point_sample,
+                       gather_point_fn=gather_point)
 
 
 def grouping(feature, k, src_xyz, q_xyz, *, use_xyz=True, use_knn=True, radius=0.2, idx=None):
-    """Grouping (see geometry.grouping); the search goes through dispatch."""
+    """Grouping (see geometry.grouping); the search and the gathers go
+    through dispatch."""
     return _g.grouping(feature, k, src_xyz, q_xyz, use_xyz=use_xyz, use_knn=use_knn,
-                       radius=radius, idx=idx, knn=knn_point, ball_query=query_ball_point)
+                       radius=radius, idx=idx, knn=knn_point, ball_query=query_ball_point,
+                       group_point_fn=group_point)

@@ -78,10 +78,13 @@ def gather_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(points, 1, index)
 
 
-def group_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather neighbourhoods: points (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
+def group_point(points: torch.Tensor, idx: torch.Tensor, *,
+                gather_point_fn=gather_point) -> torch.Tensor:
+    """Gather neighbourhoods: points (B, N, C), idx (B, M, K) -> (B, M, K, C),
+    one gather over the flattened (M, K). `gather_point_fn` lets ops.dispatch
+    substitute the gather whose backward is the kernel."""
     B, M, K = idx.shape
-    return gather_point(points, idx.reshape(B, M * K)).reshape(B, M, K, points.shape[-1])
+    return gather_point_fn(points, idx.reshape(B, M * K)).reshape(B, M, K, points.shape[-1])
 
 
 # Above this many (B * M * N) distance-matrix elements (1 GiB of float32),
@@ -220,33 +223,36 @@ def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor, *,
     return d2.detach(), idx
 
 
-def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
-                      weight: torch.Tensor) -> torch.Tensor:
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, *,
+                      group_point_fn=group_point) -> torch.Tensor:
     """Weighted sum of 3 neighbours: points (B, M2, C), idx and weight
-    (B, M1, 3) -> (B, M1, C)."""
-    return torch.sum(group_point(points, idx) * weight[..., None], dim=2)
+    (B, M1, 3) -> (B, M1, C). `group_point_fn` lets ops.dispatch substitute
+    the gather whose backward is the kernel."""
+    return torch.sum(group_point_fn(points, idx) * weight[..., None], dim=2)
 
 
 def three_interpolate_idw(xyz1: torch.Tensor, xyz2: torch.Tensor, points2: torch.Tensor,
-                          *, three_nn_fn=three_nn) -> torch.Tensor:
+                          *, three_nn_fn=three_nn, group_point_fn=group_point) -> torch.Tensor:
     """three_nn + inverse-distance weights + three_interpolate: the weights
     are 1 / d^2 with d^2 clamped at >= 1e-10, normalised over the 3
-    neighbours. `three_nn_fn` lets ops.dispatch substitute the kernel search."""
+    neighbours. `three_nn_fn` and `group_point_fn` let ops.dispatch
+    substitute the kernel search and the gather."""
     dist2, idx = three_nn_fn(xyz1, xyz2)
     inv = 1.0 / dist2.clamp_min(1e-10)
     weight = inv / inv.sum(dim=2, keepdim=True)
-    return three_interpolate(points2, idx, weight)
+    return three_interpolate(points2, idx, weight, group_point_fn=group_point_fn)
 
 
 def repulsion_loss(pred: torch.Tensor, nsample: int = 20, radius: float = 0.07,
-                   h: float = 0.03, *, ball_query=query_ball_point) -> torch.Tensor:
+                   h: float = 0.03, *, ball_query=query_ball_point,
+                   group_point_fn=group_point) -> torch.Tensor:
     """Uniformity (repulsion) penalty on sampled positions pred (B, M, 3)
     (utils/pointasnl_util.py:361-378): ball-query `nsample` neighbours in
     `radius`, keep the 5 nearest, drop the nearest (the point itself), and
-    return mean(radius - d * exp(-d^2 / h^2)). `ball_query` lets
-    ops.dispatch substitute the kernel."""
+    return mean(radius - d * exp(-d^2 / h^2)). `ball_query` and
+    `group_point_fn` let ops.dispatch substitute the kernel and the gather."""
     idx, _ = ball_query(radius, nsample, pred, pred)
-    grouped = group_point(pred, idx) - pred[:, :, None, :]
+    grouped = group_point_fn(pred, idx) - pred[:, :, None, :]
     dist2 = torch.sum(grouped * grouped, dim=-1)  # (B, M, nsample)
     dist2 = torch.sort(dist2, dim=-1, stable=True).values[..., 1:5]
     dist2 = dist2.clamp_min(1e-12)
@@ -255,15 +261,16 @@ def repulsion_loss(pred: torch.Tensor, nsample: int = 20, radius: float = 0.07,
 
 
 def sampling(npoint: int, pts: torch.Tensor, feature: Optional[torch.Tensor] = None,
-             fps=farthest_point_sample):
+             fps=farthest_point_sample, gather_point_fn=gather_point):
     """FPS + gather, the reference's `sampling` (utils/pointasnl_util.py:33-49).
 
-    `fps` lets ops.dispatch substitute the FPS kernel.
+    `fps` and `gather_point_fn` let ops.dispatch substitute the FPS kernel
+    and the gather.
     """
     fps_idx = fps(npoint, pts)
     if feature is None:
-        return gather_point(pts, fps_idx)
-    return gather_point(pts, fps_idx), gather_point(feature, fps_idx)
+        return gather_point_fn(pts, fps_idx)
+    return gather_point_fn(pts, fps_idx), gather_point_fn(feature, fps_idx)
 
 
 def grouping(
@@ -278,6 +285,7 @@ def grouping(
     idx: Optional[torch.Tensor] = None,
     knn=knn_point,
     ball_query=query_ball_point,
+    group_point_fn=group_point,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Neighbourhood grouping, the reference's `grouping`
     (utils/pointasnl_util.py:51-76): the `k` nearest neighbours, or with
@@ -286,16 +294,17 @@ def grouping(
     Returns (grouped_xyz, grouped_feature, idx) with shapes (B, M, K, 3),
     (B, M, K, [3+]C) and (B, M, K); with `use_xyz` the RAW grouped xyz is
     prepended to the features. `idx` skips the search with precomputed
-    neighbour rows (exact: a row depends only on its query). `knn` and
-    `ball_query` let ops.dispatch substitute the kernels.
+    neighbour rows (exact: a row depends only on its query). `knn`,
+    `ball_query` and `group_point_fn` let ops.dispatch substitute the
+    kernels and the gather.
     """
     if idx is None:
         if use_knn:
             _, idx = knn(k, src_xyz, q_xyz)
         else:
             idx, _ = ball_query(radius, k, src_xyz, q_xyz)
-    grouped_xyz = group_point(src_xyz, idx)
-    grouped_feature = group_point(feature, idx)
+    grouped_xyz = group_point_fn(src_xyz, idx)
+    grouped_feature = group_point_fn(feature, idx)
     if use_xyz:
         grouped_feature = torch.cat([grouped_xyz, grouped_feature], dim=-1)
     return grouped_xyz, grouped_feature, idx

@@ -6,7 +6,9 @@ so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 Indices must be exactly equal (ball-query counts too); kNN squared distances
-within 1e-6 relative. Flash attention: the kernels and the plain versions
+within 1e-6 relative. The gather backward sums in the order of CPU float32
+``index_add_``, so it must equal that and its plain version to the bit.
+Flash attention: the kernels and the plain versions
 are both float32 with sums in other orders, so o and lse must agree within
 1e-5 of their scale and dq, dk, dv within 1e-4 of theirs, plus 10 times the
 plain version's own distance from float64 dense attention (which the q x 30
@@ -26,6 +28,7 @@ from pointasnl_tpu_torch.ops import flash_attention as tf
 from pointasnl_tpu_torch.ops.cuda import ball_query as cuda_ball
 from pointasnl_tpu_torch.ops.cuda import flash_attention as cuda_flash
 from pointasnl_tpu_torch.ops.cuda import fps as cuda_fps
+from pointasnl_tpu_torch.ops.cuda import gather_backward as cuda_gather
 from pointasnl_tpu_torch.ops.cuda import knn as cuda_knn
 from pointasnl_tpu_torch.ops.cuda import knn_spatial as cuda_spatial
 from pointasnl_tpu_torch.ops.cuda import knn_streaming as cuda_streaming
@@ -165,6 +168,14 @@ def test_streaming_knn_kernel_matches_plain(dev, case):
     if self_query:  # each point is its own first neighbour
         assert torch.equal(got_i[..., 0].long(), torch.arange(support.shape[1], device=dev)
                            .expand(support.shape[0], -1))
+
+
+def test_streaming_knn_prunes_a_scene(dev):
+    """On a surface scene the streaming kernel tests a small share of the
+    pairs, as the spatial kernel does, and its result is the exact one."""
+    x = _scene(13, 1, 65536, extent=6.0 / 2 ** 0.5).to(dev)
+    tested = cuda_streaming.pairs_tested(32, x, x)
+    assert 0 < tested < 0.1 * 65536 ** 2
 
 
 def test_streaming_knn_matches_the_spatial_kernel_on_a_scene(dev):
@@ -322,6 +333,69 @@ def test_kernels_refuse_sizes_beyond_their_limits(dev):
         ops.knn_point(8, huge, big[:, :4])
 
 
+# Gather backwards a seg train step launches: 22 gathers take a gradient,
+# 3 of them (the FPS samples that adaptive sampling replaces) feed no loss
+# (tests/test_torch_gather.py counts both on the CPU).
+SEG_GATHER_BACKWARDS = 19
+
+# (B, n points, R gathered rows, C) of the gather-backward checks: the seg
+# step's shapes at B4 x 10240, then edge cases.
+GATHER_CASES = {
+    "level 1 grouping C32": (4, 10240, 1280 * 32, 32),
+    "level 2 grouping xyz": (4, 1280, 320 * 32, 3),
+    "level 2 FPS gather": (4, 1280, 320, 3),
+    "three_interpolate C512": (4, 40, 80 * 3, 512),
+    "a row gathered 3000 times": (2, 5, 3000, 7),
+    "most rows never gathered": (1, 1000, 10, 16),
+    "one row": (1, 1, 4, 1),
+}
+
+
+def gather_case(case, dev):
+    B, n, R, C = GATHER_CASES[case]
+    rng = np.random.RandomState(sum(map(ord, case)))
+    dout = torch.from_numpy(rng.randn(B, R, C).astype(np.float32))
+    if case.startswith("a row gathered"):
+        idx = torch.from_numpy(rng.randint(0, 2, (B, R)) * 3)  # rows 0 and 3 only
+    else:
+        idx = torch.from_numpy(rng.randint(0, n, (B, R)).astype(np.int32))
+    return dout.to(dev), idx.to(dev), n
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_backward_kernel_matches_plain_and_index_add(dev, case):
+    dout, idx, n = gather_case(case, dev)
+    B, R, C = dout.shape
+    before = cuda_gather.launches
+    got = cuda_gather.gather_backward(dout, idx, n)
+    again = cuda_gather.gather_backward(dout, idx, n)
+    want = cuda_gather.gather_backward_reference(dout, idx, n)
+    torch.cuda.synchronize()
+    assert cuda_gather.launches - before == 2
+    assert got.shape == (B, n, C) and torch.equal(got, again) and torch.equal(got, want)
+    flat = (idx.long() + torch.arange(B, device=dev)[:, None] * n).reshape(-1).cpu()
+    cpu = torch.zeros(B * n, C).index_add_(0, flat, dout.reshape(B * R, C).cpu())
+    assert torch.equal(got.cpu(), cpu.view(B, n, C))
+
+
+def test_gathers_with_a_gradient_take_the_kernel(dev):
+    rng = np.random.RandomState(3)
+    points = torch.from_numpy(rng.randn(2, 50, 5).astype(np.float32)).to(dev).requires_grad_()
+    idx = torch.from_numpy(rng.randint(0, 50, (2, 9, 4)).astype(np.int32)).to(dev)
+    before = cuda_gather.launches
+    out = ops.group_point(points, idx)
+    assert torch.equal(out, tg.group_point(points.detach(), idx))
+    out.backward(torch.ones_like(out))
+    assert cuda_gather.launches - before == 1
+    flat = (idx.long() + torch.arange(2, device=dev)[:, None, None] * 50).reshape(-1).cpu()
+    want = torch.zeros(100, 5).index_add_(0, flat, torch.ones(72, 5)).view(2, 50, 5)
+    assert torch.equal(points.grad.cpu(), want)
+    with torch.no_grad():
+        ops.gather_point(points, idx[..., 0])
+    ops.gather_point(torch.arange(100, device=dev).view(2, 50, 1), idx[..., 0])  # integers
+    assert cuda_gather.launches - before == 1
+
+
 def _counts():
     return (cuda_fps.launches, cuda_knn.launches, cuda_spatial.launches, cuda_ball.launches,
             cuda_streaming.launches)
@@ -383,15 +457,16 @@ def test_seg_train_step_and_forward_launch_counts(dev):
     batch = {"points": torch.from_numpy((rng.rand(2, 2048, 3) * 0.5).astype(np.float32)).to(dev),
              "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
              "smpw": torch.ones(2, 2048, device=dev)}
-    before = _counts()
+    before, g0 = _counts(), cuda_gather.launches
     metrics = step(state, batch)
     torch.cuda.synchronize()
     assert _launched(before) == (4, 11, 0, 1, 0)
+    assert cuda_gather.launches - g0 == SEG_GATHER_BACKWARDS
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
-    before = _counts()
+    before, g0 = _counts(), cuda_gather.launches
     logits = make_inference_fn(model)(batch["points"])
     torch.cuda.synchronize()
-    assert _launched(before) == (4, 11, 0, 0, 0)
+    assert _launched(before) == (4, 11, 0, 0, 0) and cuda_gather.launches == g0
     assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())
 
 
@@ -526,10 +601,12 @@ def test_flash_seg_train_step_and_forward_launch_counts(dev):
              "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
              "smpw": torch.ones(2, 2048, device=dev)}
     f0, b0, before = cuda_flash.fwd_launches, cuda_flash.bwd_launches, _counts()
+    g0 = cuda_gather.launches
     metrics = step(state, batch)
     torch.cuda.synchronize()
     assert (cuda_flash.fwd_launches - f0, cuda_flash.bwd_launches - b0) == (4, 4)
     assert _launched(before) == (4, 11, 0, 1, 0)
+    assert cuda_gather.launches - g0 == SEG_GATHER_BACKWARDS
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     f0, b0 = cuda_flash.fwd_launches, cuda_flash.bwd_launches
     logits = make_inference_fn(model)(batch["points"])

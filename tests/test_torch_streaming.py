@@ -17,6 +17,13 @@ JAX package, on the CPU.
   takes it under the same contract.
 - FPS's choice of design by N, and the streaming wrapper's refusal of CPU
   tensors.
+- The streaming kernel's visit rule (nearest segments first, a segment
+  skipped when its bound exceeds every row's kth), which
+  ``knn_streaming.emulate`` runs in plain PyTorch on the kernel's plan
+  because the kernel cannot run on the CPU: indices equal to the plain kNN's
+  and distances equal to the bit, with ties, duplicates, k > N, k > 128,
+  B > 1 and disjoint queries; and its tile and segment width, which keep the
+  plan of a B1 x 2228224 stem within PLAN_ELEMENTS.
 
 The slice's model path on the CPU is held to JAX by
 ``tests/test_torch_whole_scene.py`` (the whole-scene forward at B1 x 2048):
@@ -181,3 +188,62 @@ def test_streaming_wrapper_refuses_cpu_tensors_and_dispatch_keeps_them():
     for g, w in zip(ops.knn_point(129, x, x[:, :20]), tg.knn_point(129, x, x[:, :20])):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
     assert cuda_streaming.launches == before
+
+
+def _emulate_case(case):
+    """(support, query, k) of a named emulate case, as tensors; the query is
+    the support itself for a self-query."""
+    if case == "self k32 B2 N700":
+        s = torch.from_numpy(_cloud(50, 2, 700))
+        return s, s, 32
+    if case == "duplicates k16":  # ties: the lower index first
+        s = torch.from_numpy(_cloud(51, 1, 600, dup=300))
+        return s, s[:, 100:400].clone(), 16
+    if case == "a grid, ties everywhere k24":  # many equal distances at once
+        g = np.stack(np.meshgrid(*[np.arange(8, dtype=np.float32)] * 3, indexing="ij"), -1)
+        s = torch.from_numpy(g.reshape(1, 512, 3))
+        return s, s, 24
+    if case == "k > N, B2 k100 N40":
+        return torch.from_numpy(_cloud(52, 2, 40)), torch.from_numpy(_cloud(53, 2, 37)), 100
+    if case == "k > 128, self k200 N500":
+        s = torch.from_numpy(_cloud(54, 1, 500))
+        return s, s, 200
+    if case == "k 512, disjoint B3 N600 M90":
+        return torch.from_numpy(_cloud(55, 3, 600)), torch.from_numpy(_cloud(56, 3, 90)), 512
+    if case == "surface scene k32 N3000":  # a scan prunes
+        from pointasnl_tpu_torch.data import surface_scene
+        s = torch.from_numpy(surface_scene(np.random.RandomState(57), 1, 3000, extent=1.0))
+        return s, s, 32
+    raise ValueError(case)
+
+
+EMULATE_CASES = ["self k32 B2 N700", "duplicates k16", "a grid, ties everywhere k24",
+                 "k > N, B2 k100 N40", "k > 128, self k200 N500", "k 512, disjoint B3 N600 M90",
+                 "surface scene k32 N3000"]
+
+
+@pytest.mark.parametrize("case", EMULATE_CASES)
+def test_streaming_visit_rule_is_exact(case):
+    support, query, k = _emulate_case(case)
+    d, i, tested = cuda_streaming.emulate(k, support, query)
+    want_d, want_i = tg.knn_point(k, support, query)
+    assert i.dtype == torch.int32 and i.shape == want_i.shape
+    np.testing.assert_array_equal(i.numpy(), want_i.numpy())
+    np.testing.assert_array_equal(d.numpy(), want_d.numpy())
+    pairs = support.shape[0] * support.shape[1] * query.shape[1]
+    assert 0 < tested <= pairs
+    if case.startswith("surface scene"):
+        assert tested < 0.5 * pairs
+
+
+def test_streaming_tile_and_segments_bound_the_plan():
+    assert [cuda_streaming.tile_for(k) for k in (1, 128, 129, 256, 257, 512)] == [
+        128, 128, 64, 64, 32, 32]
+    # The B1 x 2228224 stem: 17408 tiles of 128 over 2176 segments of 1024.
+    assert cuda_streaming.segment_width(2228224, 2228224, 32) == 1024
+    for n, m, k, b in ((2228224, 2228224, 32, 1), (2 ** 28, 2 ** 28, 512, 1), (500, 500, 3, 4),
+                       (2 ** 22, 7, 32, 2)):
+        seg_w = cuda_streaming.segment_width(n, m, k, b)
+        plan = b * -(-m // cuda_streaming.tile_for(k)) * -(-n // seg_w)
+        assert seg_w >= cuda_streaming.MIN_SEG_W and (plan <= cuda_streaming.PLAN_ELEMENTS
+                                                      or seg_w >= n)

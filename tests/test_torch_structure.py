@@ -30,13 +30,15 @@ def _imported_roots(tree):
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+            + sorted((PKG.parent / "scripts").glob("torch_*.py")))
 
 
 def test_port_sources_found():
     names = {p.relative_to(PKG.parent).as_posix() for p in _port_sources()}
     assert {"pointasnl_tpu_torch/ops/dispatch.py", "pointasnl_tpu_torch/models/cls.py",
-            "pointasnl_tpu_torch/ops/cuda/knn_streaming.py", "chip_smoke.py"} <= names
+            "pointasnl_tpu_torch/ops/cuda/knn_streaming.py", "chip_smoke.py",
+            "scripts/torch_step_turns.py", "scripts/torch_flash_tf32_passes.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.relative_to(PKG.parent).as_posix())
@@ -61,8 +63,9 @@ def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
     from pointasnl_tpu_torch.ops.cuda import _build
 
     sources = _build._sources()
-    assert [p.name for p in sources] == ["ball_query.cu", "flash_attention.cu", "fps.cu", "knn.cu",
-                                         "knn_spatial.cu", "knn_streaming.cu"]
+    assert [p.name for p in sources] == ["ball_query.cu", "flash_attention.cu", "fps.cu",
+                                         "gather_backward.cu", "knn.cu", "knn_spatial.cu",
+                                         "knn_streaming.cu"]
     assert _build.BUILD_ROOT == PKG.parent / "build" / "pointasnl_tpu_torch"
     assert _build._digest(sources) == _build._digest(sources)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
