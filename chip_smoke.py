@@ -72,9 +72,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
      relative; k of 1 to 512, k > N, ties, B3, disjoint queries, N not a
      multiple of its chunk) and against the spatial kernel on slice 3's
      131072-point stem; the FPS chain of a B1 x 2228224 surface scene
-     (2228224 -> 278528 -> 69632 in the grid design, then 17408 and 8704 in
+     (2228224 -> 278528 in the grid design, then 69632, 17408 and 8704 in
      the cluster design) against the plain version, and the grid design
-     against the cluster design at 131072; the request's 8 spatial and 2
+     against the cluster design on 278528 -> 69632 and at 131072; each FPS
+     time with its microseconds a pick and the barrier-exchange design's
+     (FPS_BARRIER_DESIGN_MS) beside it; the request's 8 spatial and 2
      resident searches on those levels, each launched on its whole query
      set, against ``knn_point_chunked`` on all rows or on 2^32 / N seeded
      ones, and each spatial search also by the streaming kernel, off the
@@ -154,7 +156,14 @@ KERNELS = {  # "symbol": what the kernel's name holds in a profiler trace
                    "symbol": "gather_backward_kernel"},
 }
 FPS_CLUSTER_SYMBOL = "fps_cluster_kernel"  # the scene-scale design of csrc/fps.cu
-FPS_GRID_SYMBOL = "fps_grid_kernel"  # its design past 131072 points
+FPS_GRID_SYMBOL = "fps_grid_kernel"  # its design past 278528 points
+# Device ms of the multi-block FPS designs that exchanged each pick through a
+# cluster or grid barrier (an 8-block cluster up to 131072 points, the grid
+# past it), on the NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6), by
+# (N, npoint): printed beside the barrier-free designs' times.
+FPS_BARRIER_DESIGN_MS = {(131072, 16384): 49.2428, (16384, 4096): 9.3412,
+                         (2228224, 278528): 1300.3983, (278528, 69632): 266.8766,
+                         (69632, 17408): 45.2662, (17408, 8704): 20.2509}
 # (B, N, npoint) and (B, N support, M query, k) of slice 1's two SA layers.
 FPS_SHAPES = [(8, 1024, 512), (8, 512, 128)]
 KNN_SHAPES = [(8, 1024, 512, 32), (8, 512, 128, 64)]
@@ -245,7 +254,8 @@ BIG_LEVELS = [BIG_N, BIG_N // 8, BIG_N // 32, BIG_N // 128, BIG_N // 256]
 # self-kNN takes the streaming kernel (N > 2^21); the spatial kernel layer2_1,
 # layer2_2, layer3_1, layer3_2, layer4_1 and the three_nn of fa_layer2-4
 # (support 17408 to 278528); the resident kernel layer4_2 (8704 points) and
-# fa_layer1's three_nn; FPS the four levels, the first two in the grid design.
+# fa_layer1's three_nn; FPS the four levels, the first in the grid design and
+# the other three in the cluster design.
 BIG_LAUNCHES = {"fps": 4, "knn_resident": 2, "ball_query": 0, "knn_spatial": 8,
                 "knn_streaming": 1, "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0}
 
@@ -354,6 +364,17 @@ def bound(nbytes: float, ops: float, peak: float = PEAK_F32_FLOPS):
 def fps_bound(B, N, npoint):
     # Each pick updates every point: 3 sub, 3 mul, 2 add, 1 min, 1 compare.
     return bound(B * N * 12 + B * npoint * 4, B * (npoint - 1) * N * 10)
+
+
+def fps_notes(r) -> str:
+    """An FPS row's microseconds a pick, and the barrier-exchange design's
+    device ms at its shape where there is one."""
+    N, npoint = r["fps_n"], r["fps_npoint"]
+    if npoint < 2:
+        return ""
+    old = FPS_BARRIER_DESIGN_MS.get((N, npoint))
+    return (f", {r['ms'] * 1e3 / (npoint - 1):.3f} us a pick"
+            + (f" (the barrier-exchange design: {old:.4f} ms)" if old else ""))
 
 
 def knn_bound(B, N, M, k):
@@ -966,7 +987,19 @@ def phase_scene_fps(dev) -> float:
              (f"B1 N{SCENE_LEVELS[1]} -> {SCENE_LEVELS[2]} (scene level 2)", levels[1],
               SCENE_LEVELS[2]),
              ("duplicate points B2 N20000 -> 2000", cloud(8, 2, 20000, dev, dup=10000), 2000),
-             ("N 10241, the cluster design's smallest", cloud(9, 2, 10241, dev), 500)]
+             ("N 10241, the cluster design's smallest", cloud(9, 2, 10241, dev), 500),
+             ("all points equal B2 N20000 -> 500 (cluster)",
+              cloud(10, 2, 1, dev).expand(2, 20000, 3).contiguous(), 500),
+             ("N 278528 -> 2000, the cluster design's largest", cloud(11, 1, 278528, dev), 2000),
+             ("N 278529 -> 2000, the grid design's smallest", cloud(12, 1, 278529, dev), 2000),
+             ("all points equal N278529 -> 300 (grid)",
+              cloud(13, 1, 1, dev).expand(1, 278529, 3).contiguous(), 300),
+             # From 8 points a thread a thread keeps its largest running
+             # minimum between picks: ties and minima of 0 there.
+             ("duplicate points N131072 -> 4096 in one thread's rows (cluster, 8 a thread)",
+              cloud(14, 1, 131072, dev, dup=131072 - 4096), 4096),
+             ("duplicate points N1200000 -> 1000 (grid, 17 a thread)",
+              cloud(15, 1, 1200000, dev, dup=600000), 1000)]
     for name, x, npoint in cases:
         got = fps.farthest_point_sample(npoint, x)
         want = geometry.farthest_point_sample(npoint, x)
@@ -1199,7 +1232,8 @@ def time_kernels(dev, card, gathers):
     for B, N, npoint in FPS_SHAPES:
         x = cloud(11, B, N, dev)
         add("fps", "cls", f"B{B} N{N}->{npoint}", lambda: geometry.farthest_point_sample(npoint, x),
-            lambda: fps.farthest_point_sample(npoint, x), fps_bound(B, N, npoint))
+            lambda: fps.farthest_point_sample(npoint, x), fps_bound(B, N, npoint), fps_n=N,
+            fps_npoint=npoint)
     for B, N, M, k in KNN_SHAPES:
         s = cloud(12, B, N, dev)
         q = geometry.gather_point(s, fps.farthest_point_sample(M, s))
@@ -1209,7 +1243,8 @@ def time_kernels(dev, card, gathers):
     for a, n in zip(levels, SEG_LEVELS[1:]):
         add("fps", "seg", f"B{SEG_B} N{a.shape[1]}->{n}",
             lambda: geometry.farthest_point_sample(n, a), lambda: fps.farthest_point_sample(n, a),
-            fps_bound(SEG_B, a.shape[1], n), timing=HEAVY if n >= 320 else LIGHT)
+            fps_bound(SEG_B, a.shape[1], n), timing=HEAVY if n >= 320 else LIGHT,
+            fps_n=a.shape[1], fps_npoint=n)
     for si, qi, k in SEG_KNN:
         s, q = levels[si], levels[qi]
         N, M = s.shape[1], q.shape[1]
@@ -1232,7 +1267,7 @@ def time_kernels(dev, card, gathers):
             lambda: fps.farthest_point_sample(n, a), fps_bound(1, N, n),
             timing=(10, 2) if N == SCENE_N else HEAVY if N > 1024 else LIGHT,
             plain_timing=SLOW if N == SCENE_N else None,
-            symbol=FPS_CLUSTER_SYMBOL if N > 10240 else None)
+            symbol=FPS_CLUSTER_SYMBOL if N > 10240 else None, fps_n=N, fps_npoint=n)
     for name, s, q, k in scene_spatial_shapes(levels):
         N, M = s.shape[1], q.shape[1]
         tested = knn_spatial.pairs_tested(k, s, q)  # one untimed call that counts
@@ -1301,6 +1336,8 @@ def time_kernels(dev, card, gathers):
                    if r["library_ms"] is not None else "")
             if "streaming_ms" in r:
                 lib += f", the streaming kernel {r['streaming_ms']:.4f} ms"
+            if name == "fps":
+                tested += fps_notes(r)
             if "bound_f32_ms" in r:
                 tested += (f" ({FLASH_BWD_TF32_PASSES} TF32 passes on the tensor cores; at the "
                            f"float32 rate {r['bound_f32_ms']:.5f} ms)")
@@ -1541,17 +1578,18 @@ def phase_streaming(dev) -> float:
 def big_levels(dev):
     """The xyz of a B1 x BIG_N request's five levels, FPS of FPS of the
     scene, each level's FPS (the grid design, then the cluster design) held
-    to the plain version on its whole chain, and the grid design against the
-    cluster design at 131072 points. Returns (levels, the plain versions' ms
-    by (N, npoint), one call each)."""
+    to the plain version on its whole chain, the grid design against the
+    cluster design on the whole chain of the level that the cluster design
+    takes at its largest N, and at 131072 points. Returns (levels, the plain
+    versions' ms by (N, npoint), one call each)."""
     from pointasnl_tpu_torch.ops import geometry
     from pointasnl_tpu_torch.ops.cuda import fps
 
     levels, plain_ms = [scene(0, BIG_N, dev)], {}
     for n in BIG_LEVELS[1:]:
         a = levels[-1]
-        N, name = a.shape[1], fps.design(a.shape[1])
-        if name != ("grid" if N > SCENE_N else "cluster"):
+        N, name = a.shape[1], fps.design(a.shape[1], fps.stated_cluster_max_n())
+        if name != ("grid" if N > fps.CLUSTER_MAX_N else "cluster"):
             raise RuntimeError(f"fps B1 N{N}: routed to the {name} design")
         got = fps.farthest_point_sample(n, a)
         want, plain_ms[(N, n)] = timed(lambda: geometry.farthest_point_sample(n, a))
@@ -1559,6 +1597,12 @@ def big_levels(dev):
             raise RuntimeError(f"fps B1 N{N} -> {n} ({name} design): kernel and plain differ at "
                                f"{int((got != want).sum())} picks")
         print(f"fps B1 N{N} -> {n} ({name} design, the request's chain): indices exact")
+        if N == fps.CLUSTER_MAX_N:  # the grid design on the same whole chain
+            grid = fps._sample("grid", n, a)
+            if not torch.equal(grid, got):
+                raise RuntimeError(f"fps B1 N{N} -> {n}: grid and cluster designs differ at "
+                                   f"{int((grid != got).sum())} picks")
+            print(f"fps B1 N{N} -> {n}: grid design equal to the cluster design")
         levels.append(geometry.gather_point(a, got))
     s3 = scene(0, SCENE_N, dev)
     grid = fps._sample("grid", SCENE_LEVELS[1], s3)
@@ -1703,9 +1747,11 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
             return [None] * count
         return [t for _, t in ms]
 
+    # The request's four FPS levels, routed by the caps the library states.
+    routes = [fps.design(N, fps.stated_cluster_max_n()) for N in BIG_LEVELS[:-1]]
+    symbol = {"grid": FPS_GRID_SYMBOL, "cluster": FPS_CLUSTER_SYMBOL}
     request_ms = {"knn_streaming": in_request(KERNELS["knn_streaming"]["symbol"], 1),
-                  FPS_GRID_SYMBOL: in_request(FPS_GRID_SYMBOL, 2),
-                  FPS_CLUSTER_SYMBOL: in_request(FPS_CLUSTER_SYMBOL, 2)}
+                  **{symbol[d]: in_request(symbol[d], routes.count(d)) for d in symbol}}
     rows_out = {"knn_streaming": [], "fps": []}
 
     def row(name, shape, ms, call_ms, plain_ms, bnd, plain_shape=None, path="scene_2228224",
@@ -1734,13 +1780,12 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
     row("knn_streaming", f"B1 {BIG_ROWS}q/{BIG_N} k32 (the stem's rows)", sub_ms, sub_ms,
         sub_plain_ms, spatial_bound(1, BIG_N, BIG_ROWS, 32), path="check", **pruned(BIG_ROWS))
     for level, (a, n) in enumerate(zip(levels, BIG_LEVELS[1:])):
-        N = a.shape[1]
-        grid = fps.design(N) == "grid"
+        N, route = a.shape[1], routes[level]
         call_ms = statistics.median(time_ms(lambda a=a, n=n: fps.farthest_point_sample(n, a),
                                             1 if N == BIG_N else 3, 1, warmup=0))
-        d_ms = request_ms[FPS_GRID_SYMBOL if grid else FPS_CLUSTER_SYMBOL][level % 2] or call_ms
-        row("fps", f"B1 N{N}->{n} ({'grid' if grid else 'cluster'} design)", d_ms, call_ms,
-            fps_plain_ms[(N, n)], fps_bound(1, N, n))
+        d_ms = request_ms[symbol[route]][routes[:level].count(route)] or call_ms
+        row("fps", f"B1 N{N}->{n} ({route} design)", d_ms, call_ms, fps_plain_ms[(N, n)],
+            fps_bound(1, N, n), fps_n=N, fps_npoint=n)
     for name, rs in rows_out.items():
         for r in rs:
             plain = f" on {r['plain_shape']}" if "plain_shape" in r else ""
@@ -1748,6 +1793,8 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
             tested = (f", pairs tested {r['pairs_tested']} ({100 * r['pairs_tested_share']:.4f} % "
                       f"of M x N), brute force's bound {r['brute_bound_ms']:.4f} ms"
                       if "pairs_tested" in r else "")
+            if name == "fps":
+                tested += fps_notes(r)
             print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms {where}, "
                   f"{r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{plain}, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}){tested}  [{card}]")

@@ -77,7 +77,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pasnl_gather_backward.argtypes = [p, p, p, p, ctypes.c_longlong, i, p]
     lib.pasnl_gather_backward.restype = i
     for name in ("pasnl_fps_max_n", "pasnl_fps_cluster_max_n", "pasnl_fps_grid_max_n",
-                 "pasnl_fps_grid_blocks", "pasnl_fps_grid_slot_bytes", "pasnl_knn_max_n",
+                 "pasnl_fps_grid_blocks", "pasnl_fps_grid_scratch_bytes", "pasnl_knn_max_n",
                  "pasnl_knn_max_k", "pasnl_knn_streaming_max_n", "pasnl_knn_streaming_max_k",
                  "pasnl_ball_query_max_n", "pasnl_ball_query_max_nsample",
                  "pasnl_knn_spatial_tile", "pasnl_flash_max_width"):

@@ -69,13 +69,27 @@ def _cloud(seed, B, N, dup=0):
     (2, 10241, 500, 0),   # the smallest N of the cluster design
     (2, 20000, 2000, 10000),  # duplicate points, across the cluster's blocks
     (1, 16384, 4096, 0),  # the whole scene's level 2
-    (1, 131072, 16384, 0),  # the whole scene's level 1: the cluster design's largest N
-    (1, 131073, 2000, 0),  # the grid design's smallest N
+    (1, 131072, 16384, 0),  # the whole scene's level 1
+    (1, 131073, 2000, 0),  # 2^17 + 1: a ragged 16-block split in the cluster design
     (2, 300000, 1000, 150000),  # grid design: duplicates, B2, N not a multiple of its blocks
-    (1, 278528, 69632, 0),  # the 2^21 + 2^17 scene's level 2: the grid design's whole chain
+    (1, 278528, 69632, 0),  # the 2^21 + 2^17 scene's level 2: the cluster design's largest N
+    (1, 278529, 2000, 0),  # the grid design's smallest N
+    (2, 131072, 2048, 0),  # B2 in the cluster design
+    (2, 20000, 500, -1),  # all points equal, cluster design: every distance 0 after the first pick
+    (1, 278529, 300, -1),  # all points equal, grid design (threads with no point)
+    # From 8 points a thread a thread keeps its largest running minimum
+    # between picks; ties and minima of 0 there:
+    (1, 131072, 4096, 65536),  # cluster, 8 a thread: duplicates in other blocks
+    (1, 131072, 4096, 126976),  # points 4096..8191 copy 0..4095: in one thread's rows
+    (1, 278528, 500, -1),  # all points equal, cluster, 17 a thread
+    (1, 1200000, 1000, 600000),  # grid, 9091 points a block: duplicates, 17 a thread
+    (1, 1200000, 300, -1),  # all points equal, grid, 17 a thread
 ])
 def test_fps_kernel_matches_plain(dev, B, N, npoint, dup):
-    x = _cloud(N + npoint, B, N, dup).to(dev)
+    """dup > 0: the last dup points copy the first ones; dup = -1: every point
+    is the same, so after the first pick every running minimum is 0 and a
+    thread, warp or block with no point must lose to a real point at 0."""
+    x = (_cloud(N + npoint, B, N, dup) if dup >= 0 else _cloud(N, B, 1).expand(B, N, 3)).to(dev)
     got = cuda_fps.farthest_point_sample(npoint, x)
     want = tg.farthest_point_sample(npoint, x)
     torch.cuda.synchronize()
@@ -107,6 +121,14 @@ def test_knn_kernel_matches_plain(dev, B, N, M, k, case):
         assert torch.equal(got_i[..., 0].long(), torch.arange(0, N, N // M, device=dev)[:M].expand(B, M))
 
 
+def test_fps_cluster_design_is_stated_on_the_card(dev):
+    """The H100 has room for the 16-block cluster, so whole-scene levels up
+    to 278528 points take it; a card without states 0 and routes them to
+    the grid design."""
+    assert cuda_fps.stated_cluster_max_n() == cuda_fps.CLUSTER_MAX_N
+    assert cuda_fps.design(278528, cuda_fps.stated_cluster_max_n()) == "cluster"
+
+
 def test_fps_grid_design_matches_the_cluster_design(dev):
     """Where both take N, the grid design picks what the cluster design picks."""
     x = _scene(8, 1, 131072).to(dev)
@@ -116,6 +138,32 @@ def test_fps_grid_design_matches_the_cluster_design(dev):
     assert torch.equal(grid, cluster)
     assert torch.equal(cuda_fps._sample("grid", 300, x[:, :5000]),
                        tg.farthest_point_sample(300, x[:, :5000]))
+
+
+@pytest.mark.parametrize("first,second,B,N,npoint,same", [
+    ("block", "cluster", 2, 10240, 1280, False),  # the block design's largest N
+    ("block", "grid", 2, 4096, 1024, False),
+    ("cluster", "grid", 1, 10241, 2000, False),  # the cluster design's smallest N
+    ("cluster", "grid", 1, 278528, 4096, False),  # its largest
+    ("cluster", "grid", 2, 5, 5, True),  # blocks with no point, all points equal
+    ("block", "grid", 1, 100, 50, True),
+])
+def test_fps_designs_agree_where_both_take_n(dev, first, second, B, N, npoint, same):
+    x = (_cloud(N, B, 1).expand(B, N, 3) if same else _cloud(N + 1, B, N)).contiguous().to(dev)
+    a = cuda_fps._sample(first, npoint, x)
+    b = cuda_fps._sample(second, npoint, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, tg.farthest_point_sample(npoint, x))
+
+
+def test_fps_grid_design_takes_the_whole_chain_of_a_scene_level(dev):
+    """The 2^21 + 2^17 scene's level 2, which the cluster design now takes,
+    in the grid design: all 69632 picks."""
+    x = _scene(7, 1, 278528, extent=6.0 * 17 ** 0.5 / 8 ** 0.5).to(dev)
+    got = cuda_fps._sample("grid", 69632, x)
+    want = tg.farthest_point_sample(69632, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_fps_grid_design_first_picks_of_a_scene_past_two_million_points(dev):
@@ -306,8 +354,8 @@ def test_kernels_refuse_sizes_beyond_their_limits(dev):
     assert grid_max >= 2228224
     with pytest.raises(ValueError, match=f"N <= {grid_max}"):
         cuda_fps.farthest_point_sample(8, torch.empty(1, grid_max + 1, 3, device=dev))
-    with pytest.raises(ValueError, match="N <= 131072"):
-        cuda_fps._sample("cluster", 8, torch.zeros(1, 131073, 3, device=dev))
+    with pytest.raises(ValueError, match="N <= 278528"):
+        cuda_fps._sample("cluster", 8, torch.zeros(1, 278529, 3, device=dev))
     with pytest.raises(ValueError, match="N <= 12288"):
         cuda_knn.knn_point(8, torch.zeros(1, 12289, 3, device=dev), torch.zeros(1, 4, 3, device=dev))
     with pytest.raises(ValueError, match="k <= 128"):

@@ -68,6 +68,48 @@ def test_fps_matches_jax_oracle_and_pallas(B, N, npoint, dup):
     np.testing.assert_array_equal(got.numpy(), pallas)
 
 
+@pytest.mark.parametrize("n,cluster_max_n,name", [
+    (10240, cuda_fps.CLUSTER_MAX_N, "block"), (10241, cuda_fps.CLUSTER_MAX_N, "cluster"),
+    (131072, cuda_fps.CLUSTER_MAX_N, "cluster"), (131073, cuda_fps.CLUSTER_MAX_N, "cluster"),
+    (278528, cuda_fps.CLUSTER_MAX_N, "cluster"), (278529, cuda_fps.CLUSTER_MAX_N, "grid"),
+    (2228224, cuda_fps.CLUSTER_MAX_N, "grid"),
+    # a card that states no room for the 16-block cluster
+    (10240, 0, "block"), (10241, 0, "grid"), (278528, 0, "grid")])
+def test_fps_design_routes_each_n_to_the_smallest_design_that_holds_it(n, cluster_max_n, name):
+    caps = {"block": cuda_fps.BLOCK_MAX_N, "cluster": cluster_max_n}
+    assert cuda_fps.design(n, cluster_max_n) == name
+    assert n <= caps.get(name, float("inf"))
+    assert all(n > caps[d] for d in cuda_fps.DESIGNS[:cuda_fps.DESIGNS.index(name)])
+
+
+@pytest.mark.parametrize("stated,cap", [(cuda_fps.CLUSTER_MAX_N, cuda_fps.CLUSTER_MAX_N),
+                                        (-801, 0)])  # -cudaErrorNotSupported: no room
+def test_fps_routes_by_the_cluster_cap_the_library_states(monkeypatch, stated, cap):
+    class Library:
+        calls = 0
+
+        def pasnl_fps_cluster_max_n(self):
+            Library.calls += 1
+            return stated
+
+    monkeypatch.setattr(cuda_fps, "_cluster_caps", {})
+    lib = Library()
+    assert cuda_fps.stated_cluster_max_n(lib, device=0) == cap
+    assert cuda_fps.stated_cluster_max_n(lib, device=0) == cap and Library.calls == 1
+    assert cuda_fps.design(131072, cuda_fps.stated_cluster_max_n(lib, device=0)) == (
+        "cluster" if cap else "grid")
+
+
+@pytest.mark.parametrize("n", [131073, 278529])
+def test_fps_matches_jax_oracle_at_the_cluster_design_caps(n):
+    """At 2^17 + 1 and at the grid design's smallest N (278529), with
+    duplicates, 64 picks."""
+    x = _cloud(n, 1, n, dup=n // 2)
+    got = tg.farthest_point_sample(64, torch.from_numpy(x))
+    want = np.asarray(jg.farthest_point_sample(64, jnp.asarray(x)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def _knn_case(case):
     """(support, query, k) for the named kNN case."""
     if case == "disjoint":

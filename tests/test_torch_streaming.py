@@ -176,8 +176,9 @@ def test_knn_route_raises_past_the_streaming_caps(n, k):
 
 
 def test_fps_design_follows_n():
-    assert [cuda_fps.design(n) for n in (1, 10240, 10241, 131072, 131073, 2228224)] == [
-        "block", "block", "cluster", "cluster", "grid", "grid"]
+    assert [cuda_fps.design(n) for n in (1, 10240, 10241, 131072, 131073, 278528, 278529,
+                                         2228224)] == [
+        "block", "block", "cluster", "cluster", "cluster", "cluster", "grid", "grid"]
 
 
 def test_streaming_wrapper_refuses_cpu_tensors_and_dispatch_keeps_them():

@@ -21,7 +21,7 @@
 The forward here also holds whole-scene serving past 2^21 points (B1 x
 2228224 on the card) to JAX: the modules are the same at that size, and
 only the card's routing differs (the stem's kNN takes the streaming kernel,
-the first two FPS the grid design), which ``tests/test_torch_streaming.py``
+the first FPS the grid design), which ``tests/test_torch_streaming.py``
 holds to JAX's routing and ``tests/test_torch_cuda.py`` checks on the card.
 """
 
