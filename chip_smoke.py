@@ -10,7 +10,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
      at both slices' shapes and at the edge cases.
   3. kNN kernel against its plain version on the card: indices exact and
      squared distances within 1e-6 relative, at both slices' shapes (the
-     10240 x 10240 stem one cloud at a time) and the edge cases.
+     10240 x 10240 stem one cloud at a time) and the edge cases, among them
+     the register lists' (register_list_cases: equal points, integer
+     lattices, k of 3, 64 and 128, k > N, N not a multiple of the 1024-point
+     tile, copies of points across tile boundaries).
   4. Ball-query kernel against its plain version on the card: indices and
      counts exact at the repulsion loss's shape and the edge cases.
   5. Slice 1: ``PointASNLCls(40, adaptive_sample=True)`` from a seeded
@@ -34,7 +37,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
   8. Slice 3, whole-scene serving: scene-scale FPS (the cluster design)
      and the spatially-pruned kNN against their plain versions on the card,
      indices exact (kNN d2 within 1e-6 relative), at the whole-scene path's
-     shapes on a 131072-point surface scene and at edge cases; then
+     shapes on a 131072-point surface scene and at edge cases (the spatial
+     kNN's among them: equal points, an integer lattice, k of 3, 64 and 128,
+     three copies of each point); then
      ``PointASNLSemSegRes(21, nl_kv_block_size=4096)`` answers 3 requests
      of B1 x 131072 surface scenes (the first is bench.py's input) through
      ``serve.make_inference_fn``: a request must launch FPS 4, the spatial
@@ -46,7 +51,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
  10. Timing with CUDA events after warm-up (medians): each kernel and its
      plain version at all slices' shapes, in turns, the share of pairs
      the spatial kernel tests, and the streaming kNN on each resident and
-     spatial kNN's search (off the path, to compare them); the gather
+     spatial kNN's search (off the path, to compare them), each resident and
+     spatial time beside the shared-memory design's
+     (KNN_SHARED_MEMORY_DESIGN_MS); the gather
      backward on a seg step's 19 gathers, each call with its sort, beside
      index_add_; the B8 x 1024 cls forward; the B4 x 10240 train step
      (p50, p90, points/s) and serve forward; one torch.profiler window
@@ -80,7 +87,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
      resident searches on those levels, each launched on its whole query
      set, against ``knn_point_chunked`` on all rows or on 2^32 / N seeded
      ones, and each spatial search also by the streaming kernel, off the
-     path (equal results, timed in turns with it); the stem's kNN on 4096
+     path (equal results, timed in turns with it), with the pairs each
+     spatial search tests; the stem's kNN on 4096
      seeded rows against ``knn_point_chunked`` on the card, and the full
      M = N launch's rows against those; then
      ``PointASNLSemSegRes(21, nl_kv_block_size=4096)`` answers a warm-up
@@ -89,7 +97,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
      or flash kernel, and return finite (1, 2228224, 21)
      logits; peak memory, p50 by CUDA events, a profiler window over one
      request, and the times of the path's streaming kNN (with the pairs it
-     tests) and FPS. This phase alone: ``python3 -c "import chip_smoke as c;
+     tests), FPS and its 8 spatial and 2 resident searches (device ms from
+     the profiled request). This phase alone: ``python3 -c "import chip_smoke as c;
      d = c.phase_device(); c.slice5(d[1], d[0], print)"``.
  13. Slice 6, run after phase 11 and before the timing: the gather backward
      kernel on each of a B4 x 10240 seg step's 19 gathers (12 sorts: the
@@ -164,6 +173,33 @@ FPS_GRID_SYMBOL = "fps_grid_kernel"  # its design past 278528 points
 FPS_BARRIER_DESIGN_MS = {(131072, 16384): 49.2428, (16384, 4096): 9.3412,
                          (2228224, 278528): 1300.3983, (278528, 69632): 266.8766,
                          (69632, 17408): 45.2662, (17408, 8704): 20.2509}
+# Device ms of the kNN designs before the register lists (the resident
+# kernel's shared-memory rows with k argmin rounds, the spatial kernel's
+# thread a query with a block-wide walk), on the NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md, section 6: scripts/torch_knn_turns.py on the parent tree),
+# by (path, shape): printed beside the register-list designs' times.
+KNN_SHARED_MEMORY_DESIGN_MS = {
+    ("cls", "B8 512q/1024 k32"): 0.0670, ("cls", "B8 128q/512 k64"): 0.0315,
+    ("seg", "B4 10240q/10240 k32"): 26.4310, ("seg", "B4 320q/1280 k32"): 0.0437,
+    ("seg", "B4 320q/320 k32"): 0.0188, ("seg", "B4 80q/320 k32"): 0.0146,
+    ("seg", "B4 80q/80 k32"): 0.0106, ("seg", "B4 40q/80 k32"): 0.0107,
+    ("seg", "B4 40q/40 k32"): 0.0109, ("seg", "B4 80q/40 k3"): 0.0024,
+    ("seg", "B4 320q/80 k3"): 0.0027, ("seg", "B4 1280q/320 k3"): 0.0063,
+    ("seg", "B4 10240q/1280 k3"): 0.0917, ("scene", "B1 131072q/131072 k32"): 11.2752,
+    ("scene", "B1 4096q/16384 k32"): 5.8638, ("scene", "B1 4096q/4096 k32"): 0.2782,
+    ("scene", "B1 1024q/4096 k32"): 0.0723, ("scene", "B1 1024q/1024 k32"): 0.0246,
+    ("scene", "B1 512q/1024 k32"): 0.0246, ("scene", "B1 512q/512 k32"): 0.0166,
+    ("scene", "B1 1024q/512 k3"): 0.0035, ("scene", "B1 4096q/1024 k3"): 0.0102,
+    ("scene", "B1 16384q/4096 k3"): 0.1843, ("scene", "B1 131072q/16384 k3"): 0.5801,
+    ("scene_2228224", "B1 69632q/278528 k32"): 19.8142,
+    ("scene_2228224", "B1 69632q/69632 k32"): 8.3319,
+    ("scene_2228224", "B1 17408q/69632 k32"): 10.6633,
+    ("scene_2228224", "B1 17408q/17408 k32"): 4.1154,
+    ("scene_2228224", "B1 8704q/17408 k32"): 4.6272,
+    ("scene_2228224", "B1 8704q/8704 k32"): 3.0484, ("scene_2228224", "B1 17408q/8704 k3"): 1.5243,
+    ("scene_2228224", "B1 69632q/17408 k3"): 0.5633,
+    ("scene_2228224", "B1 278528q/69632 k3"): 1.5539,
+    ("scene_2228224", "B1 2228224q/278528 k3"): 8.5044}
 # (B, N, npoint) and (B, N support, M query, k) of slice 1's two SA layers.
 FPS_SHAPES = [(8, 1024, 512), (8, 512, 128)]
 KNN_SHAPES = [(8, 1024, 512, 32), (8, 512, 128, 64)]
@@ -377,6 +413,15 @@ def fps_notes(r) -> str:
             + (f" (the barrier-exchange design: {old:.4f} ms)" if old else ""))
 
 
+def knn_notes(name, r) -> str:
+    """A resident or spatial kNN row's device ms before the register lists,
+    where there is one."""
+    old = KNN_SHARED_MEMORY_DESIGN_MS.get((r["path"], r["shape"]))
+    if name not in ("knn_resident", "knn_spatial") or old is None:
+        return ""
+    return f" (the shared-memory design: {old:.4f} ms, {old / r['ms']:.2f}x)"
+
+
 def knn_bound(B, N, M, k):
     # Every pair's distance (8 operations) and one compare to select.
     return bound(B * (N + M) * 12 + B * M * k * 8, B * M * N * 9)
@@ -495,6 +540,42 @@ def check_knn(what: str, got, want, self_rows=None) -> float:
     return float(err.max())
 
 
+def lattice(side: int, dev) -> torch.Tensor:
+    """The side^3 integer points of a cube, B1: exact ties at many distances."""
+    g = np.stack(np.meshgrid(*[np.arange(side, dtype=np.float32)] * 3, indexing="ij"), -1)
+    return torch.from_numpy(np.ascontiguousarray(g.reshape(1, -1, 3))).to(dev)
+
+
+def register_list_cases(dev):
+    """(name, support, query, k) of the resident kNN's cases for its register
+    list (csrc/knn_select.cuh): equal points, exact ties at several
+    distances, k of 3, 64 and 128 (one, two and four entries a lane), k > N
+    at every list size, N not a multiple of the 1024-point tile, and copies of
+    points on both sides of a tile boundary."""
+    eq = cloud(40, 2, 1, dev).expand(2, 3000, 3).contiguous()
+    lat = lattice(16, dev)
+    straddle = cloud(41, 2, 3072, dev)
+    straddle[:, 974:1074] = straddle[:, :100]  # copies across the first tile boundary
+    straddle[:, 2000:2100] = straddle[:, :100]  # and the second
+    ragged = cloud(42, 3, 2049, dev)
+    return [("all equal B2 300q/3000 k32", eq, eq[:, :300].contiguous(), 32),
+            ("all equal B2 300q/3000 k128", eq, eq[:, :300].contiguous(), 128),
+            ("lattice 512q/4096 k32", lat, lat[:, ::8].contiguous(), 32),
+            ("lattice 410q/4096 k64", lat, lat[:, ::10].contiguous(), 64),
+            ("lattice 410q/4096 k128", lat, lat[:, ::10].contiguous(), 128),
+            ("lattice half-integer 2000q/4096 k3", lat,
+             torch.from_numpy((np.random.RandomState(43).randint(0, 31, (1, 2000, 3)) / 2.0)
+                              .astype(np.float32)).to(dev), 3),
+            ("k > N B2 30q/40 k64", cloud(44, 2, 40, dev), cloud(45, 2, 30, dev), 64),
+            ("k > N B2 30q/100 k128", cloud(46, 2, 100, dev), cloud(47, 2, 30, dev), 128),
+            ("N 2049, two tiles and a point, B3 683q k64", ragged, ragged[:, ::3].contiguous(), 64),
+            ("N 12288 k128 (the largest)", cloud(48, 1, 12288, dev), cloud(49, 1, 500, dev), 128),
+            ("copies across tile boundaries B2 300q/3072 k32", straddle,
+             straddle[:, :300].contiguous(), 32),
+            ("copies across tile boundaries B2 300q/3072 k128", straddle,
+             straddle[:, :300].contiguous(), 128)]
+
+
 def phase_knn(dev) -> float:
     from pointasnl_tpu_torch.ops import geometry
     from pointasnl_tpu_torch.ops.cuda import fps, knn
@@ -510,6 +591,7 @@ def phase_knn(dev) -> float:
     cases.append(("duplicate points", d, d[:, 100:400].contiguous(), 16))
     cases.append(("k > N", cloud(3, 2, 10, dev), cloud(4, 2, 7, dev), 16))
     cases.append(("disjoint B8 512q/1024 k32", cloud(6, 8, 1024, dev), cloud(7, 8, 512, dev), 32))
+    cases += register_list_cases(dev)
     levels = seg_levels(dev)
     for si, qi, k in SEG_KNN:
         s, q = levels[si], levels[qi]
@@ -526,6 +608,9 @@ def phase_knn(dev) -> float:
         torch.cuda.synchronize()
         self_rows = (torch.arange(0, 1024, 4, device=dev).expand(2, -1) if "self first" in name
                      else None)
+        if "all equal" in name and not torch.equal(
+                got[1].long(), torch.arange(k, device=dev).expand(*got[1].shape)):
+            raise RuntimeError(f"knn {name}: the indices are not 0 .. k-1")
         worst = max(worst, check_knn(f"knn {name}", got, want, self_rows))
         del got, want
     return worst
@@ -1026,6 +1111,18 @@ def spatial_cases(dev):
     b2 = torch.cat([scene(14, 20000, dev), scene(15, 20000, dev)])
     cases.append(("B2 20000 k32 (self)", b2, b2, 32))
     cases.append(("disjoint 5000q/30000 k32", scene(16, 30000, dev), scene(17, 5000, dev), 32))
+    # The register list (csrc/knn_select.cuh): equal points, exact ties,
+    # k of 64 and 128, copies on both sides of segment boundaries.
+    eq = cloud(18, 1, 1, dev).expand(1, 20000, 3).contiguous()
+    cases.append(("all equal 20000 k32 (self)", eq, eq, 32))
+    lat = lattice(24, dev)
+    cases.append(("lattice 13824 k64 (self)", lat, lat, 64))
+    half = torch.from_numpy((rng.randint(0, 47, (1, 3000, 3)) / 2.0).astype(np.float32)).to(dev)
+    cases.append(("lattice 3000q/13824 k3, half-integer queries", lat, half, 3))
+    s = scene(19, 20000, dev)
+    cases.append(("scene 20000 k128 (self)", s, s, 128))
+    t = scene(20, 6001, dev).repeat(1, 3, 1)
+    cases.append(("three copies of each point 18003 k16 (self)", t, t, 16))
     return cases
 
 
@@ -1038,6 +1135,9 @@ def phase_spatial(dev) -> float:
         got = knn_spatial.knn_point(k, support, query)
         want = geometry.knn_point(k, support, query)
         torch.cuda.synchronize()
+        if "all equal" in name and not torch.equal(
+                got[1].long(), torch.arange(k, device=dev).expand(*got[1].shape)):
+            raise RuntimeError(f"spatial knn {name}: the indices are not 0 .. k-1")
         worst = max(worst, check_knn(f"spatial knn {name}", got, want))
         del got, want
     return worst
@@ -1338,6 +1438,7 @@ def time_kernels(dev, card, gathers):
                 lib += f", the streaming kernel {r['streaming_ms']:.4f} ms"
             if name == "fps":
                 tested += fps_notes(r)
+            tested += knn_notes(name, r)
             if "bound_f32_ms" in r:
                 tested += (f" ({FLASH_BWD_TF32_PASSES} TF32 passes on the tensor cores; at the "
                            f"float32 rate {r['bound_f32_ms']:.5f} ms)")
@@ -1615,19 +1716,21 @@ def big_levels(dev):
     return levels, plain_ms
 
 
-def phase_big_searches(levels, card) -> dict:
+def phase_big_searches(levels, card):
     """A B1 x BIG_N request's kNN searches but the stem's (phase_big_scene
     checks that one), each routed as in a request and launched on its whole
     query set: the rows, all of them or BIG_PAIRS // N seeded ones where the
     plain version would take longer, held to the plain version. The
     streaming kernel runs each spatial search too, off the path: equal to
-    the spatial kernel, and timed beside it. Returns max |d2 err| by
-    kernel."""
+    the spatial kernel, and timed beside it. Returns (max |d2 err| by
+    kernel, each search's shape, kernel, call ms, plain ms and the rows it
+    was timed on, and for a spatial search its pairs tested, in the
+    request's order)."""
     from pointasnl_tpu_torch import ops
     from pointasnl_tpu_torch.ops import geometry
-    from pointasnl_tpu_torch.ops.cuda import knn_spatial, knn_streaming
+    from pointasnl_tpu_torch.ops.cuda import knn, knn_spatial, knn_streaming
 
-    routes, worst = {}, {}
+    routes, worst, searches = {}, {}, []
     for si, qi, k in SEG_KNN:
         s, q = levels[si], levels[qi]
         N, M = s.shape[1], q.shape[1]
@@ -1640,11 +1743,14 @@ def phase_big_searches(levels, card) -> dict:
         if M * N > BIG_PAIRS:
             rows = torch.from_numpy(np.sort(np.random.RandomState(si * 5 + qi).choice(
                 M, BIG_PAIRS // N, replace=False))).to(q.device)
+        want, plain_ms = timed(lambda: geometry.knn_point_chunked(k, s, q[:, rows].contiguous()))
         err = check_knn(f"{route} knn B1 {M}q/{N} k{k} (slice 5's request), {len(rows)} rows",
-                        (got_d[:, rows], got_i[:, rows]),
-                        geometry.knn_point_chunked(k, s, q[:, rows].contiguous()))
+                        (got_d[:, rows], got_i[:, rows]), want)
         name = "knn_resident" if route == "resident" else f"knn_{route}"
         worst[name] = max(worst.get(name, 0.0), err)
+        search = {"name": name, "shape": f"B1 {M}q/{N} k{k}", "plain_ms": plain_ms,
+                  "plain_shape": f"B1 {len(rows)}q/{N} k{k}", "bound": spatial_bound(1, N, M, k)
+                  if route == "spatial" else knn_bound(1, N, M, k)}
         if route == "spatial":  # the streaming kernel on the same search, off the path
             spatial = lambda: knn_spatial.knn_point(k, s, q)
             streaming = lambda: knn_streaming.knn_point(k, s, q)
@@ -1656,20 +1762,27 @@ def phase_big_searches(levels, card) -> dict:
             print(f"time knn_spatial [scene_2228224] B1 {M}q/{N} k{k}: {sp_ms:.4f} ms a call, "
                   f"the streaming kernel {st_ms:.4f} ms a call (equal results); in turns, by "
                   f"CUDA events  [{card}]")
+            tested = knn_spatial.pairs_tested(k, s, q)
+            search.update(call_ms=sp_ms, streaming_call_ms=st_ms, pairs_tested=tested,
+                          pairs_tested_share=tested / (N * M))
             del st_d, st_i
+        else:
+            search["call_ms"] = statistics.median(time_ms(lambda: knn.knn_point(k, s, q), 4, 1))
+        searches.append(search)
         del got_d, got_i
     want = {r: BIG_LAUNCHES[f"knn_{r}"] for r in ("streaming", "spatial", "resident")}
     if routes != want:
         raise RuntimeError(f"slice 5's searches route {routes}, expected {want}")
-    return worst
+    return worst, searches
 
 
-def phase_big_scene(dev, card, levels, fps_plain_ms):
+def phase_big_scene(dev, card, levels, fps_plain_ms, searches):
     """Slice 5: the stem's kNN checks, then BIG_REQUESTS whole-scene requests
     of B1 x BIG_N after a warm-up (launch counts, logits, peak memory, p50), a
     profiler window over one request, and the times of the path's streaming
-    kNN and FPS (on `levels`, big_levels'). Returns (launches, kernel rows,
-    max |d2 err|)."""
+    kNN and FPS (on `levels`, big_levels'), and of its resident and spatial
+    searches (`searches`, phase_big_searches'). Returns (launches, kernel
+    rows, max |d2 err|)."""
     from pointasnl_tpu_torch import ops
     from pointasnl_tpu_torch.models import PointASNLSemSegRes
     from pointasnl_tpu_torch.ops import geometry
@@ -1752,7 +1865,9 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
     symbol = {"grid": FPS_GRID_SYMBOL, "cluster": FPS_CLUSTER_SYMBOL}
     request_ms = {"knn_streaming": in_request(KERNELS["knn_streaming"]["symbol"], 1),
                   **{symbol[d]: in_request(symbol[d], routes.count(d)) for d in symbol}}
-    rows_out = {"knn_streaming": [], "fps": []}
+    for name in ("knn_resident", "knn_spatial"):  # in the request's order, searches' order
+        request_ms[name] = in_request(KERNELS[name]["symbol"], BIG_LAUNCHES[name])
+    rows_out = {"knn_streaming": [], "fps": [], "knn_resident": [], "knn_spatial": []}
 
     def row(name, shape, ms, call_ms, plain_ms, bnd, plain_shape=None, path="scene_2228224",
             **extra):
@@ -1786,15 +1901,23 @@ def phase_big_scene(dev, card, levels, fps_plain_ms):
         d_ms = request_ms[symbol[route]][routes[:level].count(route)] or call_ms
         row("fps", f"B1 N{N}->{n} ({route} design)", d_ms, call_ms, fps_plain_ms[(N, n)],
             fps_bound(1, N, n), fps_n=N, fps_npoint=n)
+    for name in ("knn_resident", "knn_spatial"):
+        for r, ms in zip([r for r in searches if r["name"] == name], request_ms[name]):
+            extra = {k: r[k] for k in ("pairs_tested", "pairs_tested_share", "streaming_call_ms")
+                     if k in r}
+            row(name, r["shape"], ms or r["call_ms"], r["call_ms"], r["plain_ms"], r["bound"],
+                plain_shape=r["plain_shape"], **extra)
     for name, rs in rows_out.items():
         for r in rs:
             plain = f" on {r['plain_shape']}" if "plain_shape" in r else ""
             where = "by CUDA events" if r.get("ms_is_call_ms") else "on the device"
             tested = (f", pairs tested {r['pairs_tested']} ({100 * r['pairs_tested_share']:.4f} % "
-                      f"of M x N), brute force's bound {r['brute_bound_ms']:.4f} ms"
-                      if "pairs_tested" in r else "")
+                      f"of M x N)" if "pairs_tested" in r else "")
+            if "brute_bound_ms" in r:
+                tested += f", brute force's bound {r['brute_bound_ms']:.4f} ms"
             if name == "fps":
                 tested += fps_notes(r)
+            tested += knn_notes(name, r)
             print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms {where}, "
                   f"{r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{plain}, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}){tested}  [{card}]")
@@ -1807,9 +1930,9 @@ def slice5(dev, card, mark):
     torch.cuda.empty_cache()  # hand the earlier phases' cached blocks back
     errs = {"knn_streaming": phase_streaming(dev), "fps": 0.0}
     levels, fps_plain_ms = big_levels(dev)
-    searched = phase_big_searches(levels, card)
+    searched, searches = phase_big_searches(levels, card)
     mark("slice 5 kernel checks")
-    launches, rows, err = phase_big_scene(dev, card, levels, fps_plain_ms)
+    launches, rows, err = phase_big_scene(dev, card, levels, fps_plain_ms, searches)
     errs["knn_streaming"] = max(errs["knn_streaming"], err)
     for name, e in searched.items():
         errs[name] = max(errs.get(name, 0.0), e)

@@ -1,4 +1,4 @@
-// Exact k-nearest-neighbour search, support resident in shared memory, for
+// Exact k-nearest-neighbour search over a support of up to 12288 points, for
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel pointasnl_tpu/ops/pallas/knn.py:_knn_kernel_resident
@@ -11,103 +11,121 @@
 // query that lies in the support is its own first neighbour. When k > N the
 // last valid neighbour fills the remaining slots (ops/geometry.py:167-170).
 //
-// What bounds it on the card: the selection. k rounds of min-extraction over
-// N candidates cost k * N compares a query, against 8 * N flops for the
-// distances, so the kernel is bound by shared-memory reads and compares, not
-// by device memory (which it reads once and writes k * 8 bytes a query).
+// What bounds it on the card: the pairs. Every query tests every support
+// point (8 rounded adds and multiplies and a compare), 419 M pairs at the
+// seg stem (B4, 10240 x 10240), while device memory is read once and each
+// query writes k * 8 bytes. Selecting the k least costs a query about
+// k * (1 + ln(N / k)) insertions when the support comes in no spatial order.
 //
-// What the design does about it: one warp per query, several warps a block,
-// all of one cloud. The block stages the support once into shared memory as
-// x, y, z rows; each warp writes its query's N distances into its own
-// shared-memory row, then runs k rounds of warp argmin over (d2, index) with
-// invalidation -- the TPU kernel's min-extraction, without a sort. Lane l owns
-// the slots l, l + 32, ..., so it alone reads and invalidates them and the
-// rounds need no barrier, only the shuffles. The warps a block holds follow
-// from the shared memory that N leaves (8 at N <= 4096, 1 at N = 12288).
+// What the design does about it: selection in registers
+// (csrc/knn_select.cuh), so a query's selection costs a ballot per 32
+// candidates and its insertions. A warp takes G
+// queries (4, or 1 when the search has too few queries to fill the card: the
+// wrapper's choice), held in registers with their lists; each lane
+// loads one candidate from shared memory and tests it against all G, so one
+// load serves G pairs. The lists are the warp's (a query's top-k across the
+// lanes) for k > 4; for k <= 4 (three_nn) each lane keeps its own and the
+// warp merges them at the end, since there nearly every offer that passes is
+// an insertion, and a warp-wide insertion costs the whole warp. A block of 8
+// warps streams the cloud's support through shared memory in tiles of 1024
+// points (12 KB), double-buffered with cp.async so that the next tile
+// arrives while this one is tested. Shared memory does not grow with N; what
+// limits the blocks an SM is the registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "knn_select.cuh"
+
 namespace {
 
-constexpr int kMaxWarps = 8;
-constexpr size_t kSmemLimit = 227 * 1024;
+using namespace knn_select;
 
-__device__ __forceinline__ void argmin_merge(float& v, int& i, float ov, int oi) {
-  if (ov < v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+constexpr int kWarps = 8;
+constexpr int kTile = 1024;  // support points a stage (x, y, z: 12 KB)
+constexpr int kMaxN = 12288;  // the route's cap (knn.py:RESIDENT_MAX_N)
+constexpr int kMaxK = 128;
+
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-__global__ void knn_kernel(const float* __restrict__ support,
-                           const float* __restrict__ query,
-                           float* __restrict__ dist_out, int32_t* __restrict__ idx_out,
-                           int n, int m, int k) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  const int warp = threadIdx.x >> 5;
+// Start copying `count` floats from src to dst, in one cp.async group.
+__device__ __forceinline__ void stage(float* dst, const float* src, int count) {
+  for (int j = threadIdx.x; j < count; j += blockDim.x) copy_async4(dst + j, src + j);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Sel: List<E>, the warp's lists, or LaneList<K> (k = K <= kLaneK), each
+// lane's own, merged at the end.
+template <class Sel, int G>
+__global__ void __launch_bounds__(kWarps * 32) knn_kernel(
+    const float* __restrict__ support, const float* __restrict__ query,
+    float* __restrict__ dist_out, int32_t* __restrict__ idx_out, int n, int m, int k) {
+  __shared__ __align__(16) float tile[2][kTile * 3];  // x, y, z a point, as in device memory
   const int lane = threadIdx.x & 31;
-  float* d2 = sz + n + (size_t)warp * n;
-
   const int b = blockIdx.y;
+  const int q0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * G;
+
+  float qx[G], qy[G], qz[G];
+  Sel list[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const bool active = q0 + g < m;
+    const float* q = query + ((size_t)b * m + (active ? q0 + g : 0)) * 3;
+    qx[g] = q[0];
+    qy[g] = q[1];
+    qz[g] = q[2];
+    init(list[g], active);
+  }
+
   const float* s = support + (size_t)b * n * 3;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sx[i] = s[3 * i + 0];
-    sy[i] = s[3 * i + 1];
-    sz[i] = s[3 * i + 2];
-  }
-  __syncthreads();
-
-  const int q = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (q >= m) return;  // no barrier follows
-  const float* qp = query + ((size_t)b * m + q) * 3;
-  const float qx = qp[0], qy = qp[1], qz = qp[2];
-  for (int i = lane; i < n; i += 32) {
-    const float dx = qx - sx[i], dy = qy - sy[i], dz = qz - sz[i];
-    d2[i] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-  }
-
-  float* dout = dist_out + ((size_t)b * m + q) * k;
-  int32_t* iout = idx_out + ((size_t)b * m + q) * k;
-  const int rounds = k < n ? k : n;
-  float v = 0.0f;
-  int i = 0;
-  for (int r = 0; r < rounds; ++r) {
-    v = __int_as_float(0x7f800000);  // +inf: taken slots hold +inf too
-    i = n;
-    for (int j = lane; j < n; j += 32) {
-      const float d = d2[j];
-      if (d < v || (d == v && j < i)) {
-        v = d;
-        i = j;
+  const int n_tiles = (n + kTile - 1) / kTile;
+  stage(tile[0], s, min(kTile, n) * 3);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int base = t * kTile;
+    if (t + 1 < n_tiles) {
+      stage(tile[(t + 1) & 1], s + (size_t)(base + kTile) * 3, min(kTile, n - base - kTile) * 3);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // tile t is in for every thread
+    if (q0 < m) {
+      const float* p = tile[t & 1];
+      const int cnt = min(kTile, n - base);
+      for (int j0 = 0; j0 < cnt; j0 += 32) {
+        const int j = j0 + lane;
+        const bool valid = j < cnt;
+        const int jj = valid ? j : 0;
+        const float px = p[3 * jj], py = p[3 * jj + 1], pz = p[3 * jj + 2];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          offer(list[g], sqdist(qx[g], qy[g], qz[g], px, py, pz), base + j, valid, k, lane);
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-      argmin_merge(v, i, ov, oi);
-    }
-    if ((i & 31) == lane) d2[i] = __int_as_float(0x7f800000);
-    if (lane == 0) {
-      dout[r] = fmaxf(v, 0.0f);
-      iout[r] = i;
-    }
+    __syncthreads();  // every warp is done with tile t before it is restaged
   }
-  for (int r = rounds + lane; r < k; r += 32) {  // k > N: repeat the last neighbour
-    dout[r] = fmaxf(v, 0.0f);
-    iout[r] = i;
+
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (q0 + g < m) {
+      const size_t row = (size_t)b * m + q0 + g;
+      store(list[g], dist_out + row * k, idx_out + row * k, k, n, lane);
+    }
   }
 }
 
-int warps_for(int n) {
-  const size_t stage = (size_t)3 * n * sizeof(float);
-  const size_t row = (size_t)n * sizeof(float);
-  if (stage + row > kSmemLimit) return 0;
-  size_t w = (kSmemLimit - stage) / row;
-  return w > (size_t)kMaxWarps ? kMaxWarps : (int)w;
+template <class Sel>
+cudaError_t launch(int group, dim3 grid, cudaStream_t stream, const float* support,
+                   const float* query, float* dist, int32_t* idx, int n, int m, int k) {
+  switch (group) {
+    case 1: knn_kernel<Sel, 1><<<grid, kWarps * 32, 0, stream>>>(support, query, dist, idx, n, m, k); break;
+    case 4: knn_kernel<Sel, 4><<<grid, kWarps * 32, 0, stream>>>(support, query, dist, idx, n, m, k); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -115,23 +133,32 @@ int warps_for(int n) {
 extern "C" {
 
 // Largest N the kernel takes (knn.py:RESIDENT_MAX_N) and largest k.
-int pasnl_knn_max_n() { return 12288; }
-int pasnl_knn_max_k() { return 128; }
+int pasnl_knn_max_n() { return kMaxN; }
+int pasnl_knn_max_k() { return kMaxK; }
 
-int pasnl_knn(const void* support, const void* query, void* dist, void* idx,
-              int b, int n, int m, int k, void* stream) {
-  const int warps = warps_for(n);
-  if (warps == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(3 + warps) * n * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// `group`: queries a warp, 1 or 4 (ops/cuda/knn.py:queries_a_warp).
+int pasnl_knn(const void* support, const void* query, void* dist, void* idx, int b, int n,
+              int m, int k, int group, void* stream) {
+  if (n < 1 || n > kMaxN || k < 1 || k > kMaxK || m < 1 || b < 1 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kWarps * group;
+  const dim3 grid((m + per_block - 1) / per_block, b);
+  const float* s = (const float*)support;
+  const float* q = (const float*)query;
+  cudaStream_t st = (cudaStream_t)stream;
+  float* d = (float*)dist;
+  int32_t* i = (int32_t*)idx;
+  switch (k) {
+    case 1: return (int)launch<LaneList<1>>(group, grid, st, s, q, d, i, n, m, k);
+    case 2: return (int)launch<LaneList<2>>(group, grid, st, s, q, d, i, n, m, k);
+    case 3: return (int)launch<LaneList<3>>(group, grid, st, s, q, d, i, n, m, k);
+    case 4: return (int)launch<LaneList<4>>(group, grid, st, s, q, d, i, n, m, k);
   }
-  const dim3 grid((m + warps - 1) / warps, b);
-  knn_kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)support, (const float*)query, (float*)dist, (int32_t*)idx, n, m, k);
-  return (int)cudaGetLastError();
+  switch (entries_for(k)) {
+    case 1: return (int)launch<List<1>>(group, grid, st, s, q, d, i, n, m, k);
+    case 2: return (int)launch<List<2>>(group, grid, st, s, q, d, i, n, m, k);
+    default: return (int)launch<List<4>>(group, grid, st, s, q, d, i, n, m, k);
+  }
 }
 
 }  // extern "C"

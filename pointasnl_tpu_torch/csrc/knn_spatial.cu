@@ -16,158 +16,229 @@
 // (ops/cuda/knn_spatial.py:make_plan): the support is sorted by 30-bit Morton
 // code into segments of seg_w points with bounding spheres, whose radii carry
 // an absolute slack of 1e-5 of the scene's extent for the float32
-// cancellation of |q - c| - r; the queries are sorted the same way into tiles
-// of kTile with their own spheres; and each tile gets the segments in
-// ascending order of the squared lower bound max(0, |qc - sc| - qr - sr)^2,
-// with those bounds. The kernel's output rows are in the queries' sorted
-// order; the wrapper puts them back in the caller's.
+// cancellation of |q - c| - r, and packed as (x, y, z, original id) in one
+// 16-byte word a point; the queries are sorted the same way into tiles of
+// kTile with their own spheres; and each tile gets the segments in ascending
+// order of the squared lower bound max(0, |qc - sc| - qr - sr)^2, with those
+// bounds. The kernel's output rows are in the queries' sorted order; the
+// wrapper puts them back in the caller's.
 //
-// The kernel: one block per tile, one thread per query row, each row's
-// running top-k kept sorted by (d2, original id) in shared memory (slot j of
-// row r at j * kTile + r, so a warp's accesses never share a bank). The
-// block walks its tile's segments nearest first. A row tests a segment only
-// if its own gate holds, max(0, |q - c| - r)^2 <= its kth d2; a segment no
-// row wants is not even staged. A visited segment's xyz and ids are staged
-// in shared memory, and each passing row merges every candidate whose
-// (d2, id) is below its kth (d2, id) by insertion. After each visit the
-// block takes the largest kth of its rows, and the walk stops when the next
-// segment's lower bound exceeds it: no candidate there can displace an
-// entry, not even a tie with a lower id, since every comparison is <=.
-// Blocks run in any order and share nothing.
+// What bounds it on the card: the candidates tested and the latency of
+// reaching them. Each costs 8 flops and a compare, and a few shuffles when it
+// enters a list; device memory is touched to read visited segments (from L2:
+// the packed support of a 278528-point level is 4.5 MB) and to write the
+// rows. The segments are narrow (64 points up to N = 131072), so that their
+// spheres hug the points and a query tests few candidates.
 //
-// What bounds it on the card: the candidates tested. Each costs 8 flops and
-// a compare, and an insertion of up to k slots when it enters; device memory
-// is touched only to stage visited segments (from L2: the sorted support of
-// a scene is 1.5 MB) and to write the rows. So the segments are narrow: a
-// row tests whole segments, and the narrower they are, the closer their
-// spheres hug the points and the fewer candidates a row tests (64 points up
-// to N = 131072, where JAX's 512 suits the TPU's wide vector unit). They
-// widen past that so that a tile's visit order never exceeds 2048 segments.
-// The wrapper's pairs_tested counts the candidates.
+// The kernel: a warp takes one query, its running top-k held across the
+// warp's lanes in registers (csrc/knn_select.cuh); for k <= 4 a warp takes
+// 32 queries, a lane each (knn_spatial_kernel_by_lane, below). The warp walks
+// its tile's order alone, no block barrier anywhere: its lanes read 32 visit
+// positions at once and compute each position's gate, max(0, |q - c| - r)^2;
+// the warp then visits, in order, the positions whose gate is <= the kth d2,
+// and stops at the first position whose lower bound exceeds it: no
+// candidate there can displace an entry, not even a tie with a lower id,
+// since every comparison is <=. A visited segment's points are read by the
+// lanes straight from device memory (L2), 32 at a time, the next 32 in
+// flight while these are tested. Rows that have not found k points hold an
+// infinite kth. A query's walk can only stop earlier than the tile-wide walk
+// of the streaming kernel, never skip a candidate that could enter: its
+// visits and gates are the same up to its stop. Warps share nothing, and a
+// row's result is the k least (d2, id) of the points it tested, which
+// include every point that could enter. One query a warp, not 2 or 4 sharing
+// each load: on the card the shared loads did not pay for the walks the
+// queries then take together (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "knn_select.cuh"
+
 namespace {
 
-constexpr int kTile = 128;      // queries a block, one thread a query
+using namespace knn_select;
+
+constexpr int kTile = 128;      // queries a tile of the plan
+constexpr int kWarps = 4;       // warps a block
 constexpr int kMaxSeg = 1024;   // widest segment the plan makes
 constexpr int kMaxSegments = 2048;
 constexpr int kMaxK = 128;
 constexpr int kMaxN = kMaxSeg * kMaxSegments;  // 2^21, with a single-level visit order
 
-__device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, float by,
-                                        float bz) {
-  const float dx = ax - bx, dy = ay - by, dz = az - bz;
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
-// (d, i) before (od, oi) in the order of the output rows.
-__device__ __forceinline__ bool before(float d, int i, float od, int oi) {
-  return d < od || (d == od && i < oi);
-}
-
-__global__ void __launch_bounds__(kTile) knn_spatial_kernel(
+template <int E>
+__global__ void __launch_bounds__(kWarps * 32) knn_spatial_kernel(
     const float* __restrict__ query,      // (B, M, 3), sorted
-    const float* __restrict__ support,    // (B, N, 3), sorted
-    const int32_t* __restrict__ ids,      // (B, N) original index of each sorted point
+    const float4* __restrict__ points,    // (B, N) sorted (x, y, z, id as float bits)
     const float4* __restrict__ spheres,   // (B, S) segment centre and radius
     const int32_t* __restrict__ order,    // (B, T, S) a tile's segments, nearest first
     const float* __restrict__ lower,      // (B, T, S) their squared lower bounds
     float* __restrict__ dist_out, int32_t* __restrict__ idx_out,  // (B, M, k), sorted rows
     unsigned long long* __restrict__ tested,  // pairs tested, or null
     int n, int m, int k, int seg_w, int n_seg, int n_tile) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + seg_w;
-  float* sz = sy + seg_w;
-  int* sid = reinterpret_cast<int*>(sz + seg_w);
-  float* run_d = reinterpret_cast<float*>(sid + seg_w);  // [k][kTile]
-  int* run_i = reinterpret_cast<int*>(run_d + (size_t)k * kTile);
-  __shared__ float warp_kth[kTile / 32];
-
-  const int tid = threadIdx.x;
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int row = t * kTile + tid;
-  const bool active = row < m;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);  // the warp's query
+  if (row >= m) return;  // no barrier follows
   const float inf = __int_as_float(0x7f800000);
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (active) {
-    const float* q = query + ((size_t)b * m + row) * 3;
-    qx = q[0];
-    qy = q[1];
-    qz = q[2];
-  }
-  for (int j = 0; j < k; ++j) {
-    run_d[j * kTile + tid] = inf;
-    run_i[j * kTile + tid] = INT_MAX;
-  }
-  // The row's kth entry. A row past M holds -1: it passes no gate and never
-  // raises the tile's bound.
-  float kth_d = active ? inf : -1.0f;
-  int kth_i = INT_MAX;
-  unsigned long long n_tested = 0;
+  const float* q = query + ((size_t)b * m + row) * 3;
+  const float qx = q[0], qy = q[1], qz = q[2];
+  List<E> list;
+  init(list, true);
 
-  const float* s = support + (size_t)b * n * 3;
-  const int32_t* sids = ids + (size_t)b * n;
+  const float4* pts = points + (size_t)b * n;
   const float4* sph = spheres + (size_t)b * n_seg;
-  const size_t plan = ((size_t)b * n_tile + t) * n_seg;
-  float bound = inf;  // the largest kth of the tile's rows
-  for (int v = 0; v < n_seg && lower[plan + v] <= bound; ++v) {
-    const int seg = order[plan + v];
+  const size_t plan = ((size_t)b * n_tile + row / kTile) * n_seg;
+  unsigned long long n_tested = 0;
+  for (int v0 = 0; v0 < n_seg; v0 += 32) {
+    // This lane's visit position: its lower bound, segment and gate.
+    const int v = v0 + lane;
+    const bool in = v < n_seg;
+    const float lo = in ? lower[plan + v] : inf;
+    const int seg = in ? order[plan + v] : 0;
     const float4 c = sph[seg];
     const float gap = fmaxf(sqrtf(sqdist(qx, qy, qz, c.x, c.y, c.z)) - c.w, 0.0f);
-    const bool pass = active && __fmul_rn(gap, gap) <= kth_d;
-    if (!__syncthreads_or(pass)) continue;  // also: the last visit's reads are done
-
-    const int base = seg * seg_w;
-    const int cnt = min(seg_w, n - base);
-    for (int j = tid; j < cnt; j += kTile) {
-      const float* p = s + (size_t)(base + j) * 3;
-      sx[j] = p[0];
-      sy[j] = p[1];
-      sz[j] = p[2];
-      sid[j] = sids[base + j];
-    }
-    __syncthreads();
-    if (pass) {
-      for (int j = 0; j < cnt; ++j) {
-        const float d = sqdist(qx, qy, qz, sx[j], sy[j], sz[j]);
-        const int id = sid[j];
-        if (!before(d, id, kth_d, kth_i)) continue;
-        int p = k - 1;  // insert, shifting the larger entries up by one
-        for (; p > 0; --p) {
-          const float pd = run_d[(p - 1) * kTile + tid];
-          const int pi = run_i[(p - 1) * kTile + tid];
-          if (!before(d, id, pd, pi)) break;
-          run_d[p * kTile + tid] = pd;
-          run_i[p * kTile + tid] = pi;
-        }
-        run_d[p * kTile + tid] = d;
-        run_i[p * kTile + tid] = id;
-        kth_d = run_d[(k - 1) * kTile + tid];
-        kth_i = run_i[(k - 1) * kTile + tid];
+    const float gap2 = __fmul_rn(gap, gap);
+    unsigned taken = 0;  // positions visited or passed over
+    bool stop = false;
+    for (;;) {
+      // The walk reaches the positions before the first whose lower bound
+      // exceeds the kth d2 (or past the order); of those it visits the ones
+      // whose gate holds, in order.
+      const unsigned past = __ballot_sync(kFull, !in || lo > list.kth_d);
+      const unsigned reach = past ? (1u << (__ffs(past) - 1)) - 1 : kFull;
+      const unsigned go = __ballot_sync(kFull, gap2 <= list.kth_d) & reach & ~taken;
+      if (go == 0) {
+        stop = past != 0;
+        break;
       }
+      const int j = __ffs(go) - 1;
+      taken |= j == 31 ? kFull : (2u << j) - 1;
+      const int base = __shfl_sync(kFull, seg, j) * seg_w;
+      const int cnt = min(seg_w, n - base);
       n_tested += cnt;
+      float4 next = lane < cnt ? __ldg(pts + base + lane) : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c0 = 0; c0 < cnt; c0 += 32) {
+        const float4 p = next;
+        const bool valid = c0 + lane < cnt;
+        if (c0 + 32 < cnt)  // the next 32 points are on their way while these are tested
+          next = c0 + 32 + lane < cnt ? __ldg(pts + base + c0 + 32 + lane) : p;
+        offer(list, sqdist(qx, qy, qz, p.x, p.y, p.z), __float_as_int(p.w), valid, k, lane);
+      }
     }
-    float w = kth_d;
-    for (int off = 16; off > 0; off >>= 1) w = fmaxf(w, __shfl_xor_sync(0xffffffffu, w, off));
-    if ((tid & 31) == 0) warp_kth[tid >> 5] = w;
-    __syncthreads();
-    bound = warp_kth[0];
-    for (int i = 1; i < kTile / 32; ++i) bound = fmaxf(bound, warp_kth[i]);
+    if (stop) break;
+  }
+
+  const size_t out = ((size_t)b * m + row) * k;
+  store(list, dist_out + out, idx_out + out, k, n, lane);
+  if (tested != nullptr && lane == 0 && n_tested != 0) atomicAdd(tested, n_tested);
+}
+
+// Small k (k <= kLaneK, three_nn): a lane per query, 32 queries a warp,
+// each list in its own lane's registers. The warp walks the tile's order as
+// above, visit position by visit position; the lanes whose gate holds read
+// the segment's points with one broadcast load each (the same address in
+// every lane, so one load serves up to 32 queries) and insert in their own
+// lists.
+constexpr int kUnroll = 8;
+
+template <int K>
+__global__ void __launch_bounds__(kWarps * 32) knn_spatial_kernel_by_lane(
+    const float* __restrict__ query, const float4* __restrict__ points,
+    const float4* __restrict__ spheres, const int32_t* __restrict__ order,
+    const float* __restrict__ lower, float* __restrict__ dist_out, int32_t* __restrict__ idx_out,
+    unsigned long long* __restrict__ tested, int n, int m, int k, int seg_w, int n_seg,
+    int n_tile) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int q0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;
+  if (q0 >= m) return;  // no barrier follows
+  const float inf = __int_as_float(0x7f800000);
+  const int row = q0 + lane;
+  const bool active = row < m;
+  const float* q = query + ((size_t)b * m + (active ? row : q0)) * 3;
+  const float qx = q[0], qy = q[1], qz = q[2];
+  LaneList<K> list;
+  init(list, active);
+
+  const float4* pts = points + (size_t)b * n;
+  const float4* sph = spheres + (size_t)b * n_seg;
+  const size_t plan = ((size_t)b * n_tile + q0 / kTile) * n_seg;
+  unsigned long long n_tested = 0;
+  float bound = inf;  // the largest kth d2 of the warp's queries
+  bool stop = false;
+  for (int v0 = 0; v0 < n_seg && !stop; v0 += 32) {
+    const int v = v0 + lane;  // this lane holds visit position v0 + lane for the warp
+    const float lo_l = v < n_seg ? lower[plan + v] : inf;
+    const int seg_l = v < n_seg ? order[plan + v] : 0;
+    const float4 c_l = sph[seg_l];
+    const int count = min(32, n_seg - v0);
+    for (int j = 0; j < count; ++j) {
+      if (__shfl_sync(kFull, lo_l, j) > bound) {
+        stop = true;
+        break;
+      }
+      const int seg = __shfl_sync(kFull, seg_l, j);
+      const float cx = __shfl_sync(kFull, c_l.x, j), cy = __shfl_sync(kFull, c_l.y, j);
+      const float cz = __shfl_sync(kFull, c_l.z, j), cr = __shfl_sync(kFull, c_l.w, j);
+      const float gap = fmaxf(sqrtf(sqdist(qx, qy, qz, cx, cy, cz)) - cr, 0.0f);
+      const bool gate = __fmul_rn(gap, gap) <= list.kth_d;
+      const unsigned gates = __ballot_sync(kFull, gate);
+      if (gates == 0) continue;
+      const int base = seg * seg_w;
+      const int cnt = min(seg_w, n - base);
+      n_tested += (unsigned long long)__popc(gates) * cnt;
+      if (gate) {
+        const float4* sp = pts + base;
+        int c = 0;
+        for (; c + kUnroll <= cnt; c += kUnroll) {
+          float4 p[kUnroll];
+          float d[kUnroll];
+          bool any = false;
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            p[u] = __ldg(sp + c + u);
+            d[u] = sqdist(qx, qy, qz, p[u].x, p[u].y, p[u].z);
+            any |= d[u] <= list.kth_d;
+          }
+          if (any) {
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u)
+              offer(list, d[u], __float_as_int(p[u].w), true, k, lane);
+          }
+        }
+        for (; c < cnt; ++c) {
+          const float4 p = __ldg(sp + c);
+          offer(list, sqdist(qx, qy, qz, p.x, p.y, p.z), __float_as_int(p.w), true, k, lane);
+        }
+      }
+      bound = list.kth_d;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        bound = fmaxf(bound, __shfl_xor_sync(kFull, bound, off));
+    }
   }
 
   if (active) {
     float* dout = dist_out + ((size_t)b * m + row) * k;
     int32_t* iout = idx_out + ((size_t)b * m + row) * k;
-    for (int j = 0; j < k; ++j) {
-      dout[j] = fmaxf(run_d[j * kTile + tid], 0.0f);
-      iout[j] = run_i[j * kTile + tid];
+#pragma unroll
+    for (int p = 0; p < K; ++p) {
+      dout[p] = fmaxf(list.d[p], 0.0f);
+      iout[p] = list.i[p];
     }
   }
-  if (tested != nullptr && n_tested != 0) atomicAdd(tested, n_tested);
+  if (tested != nullptr && lane == 0 && n_tested != 0) atomicAdd(tested, n_tested);
+}
+
+template <int E>
+cudaError_t launch(dim3 grid, cudaStream_t stream, const float* query, const float4* points,
+                   const float4* spheres, const int32_t* order, const float* lower, float* dist,
+                   int32_t* idx, unsigned long long* tested, int n, int m, int k, int seg_w,
+                   int n_seg, int n_tile) {
+  knn_spatial_kernel<E><<<grid, kWarps * 32, 0, stream>>>(
+      query, points, spheres, order, lower, dist, idx, tested, n, m, k, seg_w, n_seg, n_tile);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -177,27 +248,46 @@ extern "C" {
 // The query tile of the plan, which the wrapper checks against its own.
 int pasnl_knn_spatial_tile() { return kTile; }
 
-int pasnl_knn_spatial(const void* query, const void* support, const void* ids,
-                      const void* spheres, const void* order, const void* lower, void* dist,
-                      void* idx, void* tested, int b, int n, int m, int k, int seg_w,
-                      int n_seg, int n_tile, void* stream) {
-  if (k < 1 || k > kMaxK || n < k || n > kMaxN || m < 1 || seg_w < 1 || seg_w > kMaxSeg ||
-      n_seg != (n + seg_w - 1) / seg_w || n_seg > kMaxSegments ||
-      n_tile != (m + kTile - 1) / kTile) {
+// `group`: queries a warp, 1, or 32 for k <= kLaneK, a lane a query
+// (ops/cuda/knn_spatial.py:walk_rows).
+int pasnl_knn_spatial(const void* query, const void* points, const void* spheres,
+                      const void* order, const void* lower, void* dist, void* idx, void* tested,
+                      int b, int n, int m, int k, int seg_w, int n_seg, int n_tile, int group,
+                      void* stream) {
+  if (k < 1 || k > kMaxK || n < k || n > kMaxN || m < 1 || b < 1 || b > 65535 || seg_w < 1 ||
+      seg_w > kMaxSeg || n_seg != (n + seg_w - 1) / seg_w || n_seg > kMaxSegments ||
+      n_tile != (m + kTile - 1) / kTile || group != (k <= kLaneK ? 32 : 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)seg_w * 4 * sizeof(float) + (size_t)k * kTile * 8;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_spatial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  const int per_block = kWarps * group;
+  const dim3 grid((m + per_block - 1) / per_block, b);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (group == 32) {
+#define KNN_SPATIAL_BY_LANE(K)                                                          \
+  knn_spatial_kernel_by_lane<K><<<grid, kWarps * 32, 0, st>>>(                          \
+      (const float*)query, (const float4*)points, (const float4*)spheres,               \
+      (const int32_t*)order, (const float*)lower, (float*)dist, (int32_t*)idx,          \
+      (unsigned long long*)tested, n, m, k, seg_w, n_seg, n_tile)
+    switch (k) {
+      case 1: KNN_SPATIAL_BY_LANE(1); break;
+      case 2: KNN_SPATIAL_BY_LANE(2); break;
+      case 3: KNN_SPATIAL_BY_LANE(3); break;
+      default: KNN_SPATIAL_BY_LANE(4); break;
+    }
+#undef KNN_SPATIAL_BY_LANE
+    return (int)cudaGetLastError();
   }
-  const dim3 grid(n_tile, b);
-  knn_spatial_kernel<<<grid, kTile, smem, (cudaStream_t)stream>>>(
-      (const float*)query, (const float*)support, (const int32_t*)ids, (const float4*)spheres,
-      (const int32_t*)order, (const float*)lower, (float*)dist, (int32_t*)idx,
-      (unsigned long long*)tested, n, m, k, seg_w, n_seg, n_tile);
-  return (int)cudaGetLastError();
+  const float* q = (const float*)query;
+  const float4* p = (const float4*)points;
+  const float4* sp = (const float4*)spheres;
+  const int32_t* o = (const int32_t*)order;
+  const float* lo = (const float*)lower;
+  unsigned long long* t = (unsigned long long*)tested;
+  switch (entries_for(k)) {
+    case 1: return (int)launch<1>(grid, st, q, p, sp, o, lo, (float*)dist, (int32_t*)idx, t, n, m, k, seg_w, n_seg, n_tile);
+    case 2: return (int)launch<2>(grid, st, q, p, sp, o, lo, (float*)dist, (int32_t*)idx, t, n, m, k, seg_w, n_seg, n_tile);
+    default: return (int)launch<4>(grid, st, q, p, sp, o, lo, (float*)dist, (int32_t*)idx, t, n, m, k, seg_w, n_seg, n_tile);
+  }
 }
 
 }  // extern "C"

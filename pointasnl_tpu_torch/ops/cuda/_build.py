@@ -5,8 +5,9 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
 with a plain C interface, loaded with ``ctypes``. The build happens at the
 first kernel call, never at import, and lands in
 ``build/pointasnl_tpu_torch/<hash>/`` at the root of the checkout, keyed on a
-hash of the sources and the flags, so a changed source builds anew and an
-unchanged one loads the library already built.
+hash of the flags, the sources and the headers they share (``csrc/*.cuh``),
+so a changed source or header builds anew and an unchanged tree loads the
+library already built.
 """
 
 from __future__ import annotations
@@ -34,7 +35,13 @@ build_seconds = None  # wall time of the build in this process, None if loaded
 
 
 def _sources():
+    """The files compiled, one nvcc each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _inputs():
+    """Every file the build reads: the sources and the headers they include."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -45,9 +52,9 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _digest(sources) -> str:
+def _digest(files) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -60,11 +67,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.pasnl_fps_grid.argtypes = [p, p, p, i, i, i, p]
     lib.pasnl_fps_grid.restype = i
-    lib.pasnl_knn.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.pasnl_knn.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.pasnl_knn.restype = i
     lib.pasnl_ball_query.argtypes = [p, p, p, p, i, i, i, i, f, p]
     lib.pasnl_ball_query.restype = i
-    lib.pasnl_knn_spatial.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.pasnl_knn_spatial.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pasnl_knn_spatial.restype = i
     lib.pasnl_knn_streaming.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pasnl_knn_streaming.restype = i
@@ -95,7 +102,7 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = _sources()
-        out_dir = BUILD_ROOT / _digest(sources)
+        out_dir = BUILD_ROOT / _digest(_inputs())
         so = out_dir / "libpointasnl_kernels.so"
         if not so.exists():
             nvcc = _nvcc()

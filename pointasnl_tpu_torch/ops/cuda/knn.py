@@ -2,7 +2,7 @@
 
 Replaces ``pointasnl_tpu/ops/pallas/knn.py`` (``_knn_kernel_resident``, reached
 through ``_knn_scan``). The plain version it is held against is
-``ops.geometry.knn_point``.
+``ops.geometry.knn_point``. ``queries_a_warp`` sizes its warps.
 """
 
 from __future__ import annotations
@@ -14,6 +14,17 @@ import torch
 from pointasnl_tpu_torch.ops.cuda import _build
 
 launches = 0  # kernel launches made by this process
+# Warps that fill the H100: 132 SMs x 31.
+FILL_WARPS = 4096
+
+
+def queries_a_warp(queries: int) -> int:
+    """Queries a warp of the resident kNN kernel takes for a search of
+    `queries` rows in all (B * M): 4, so that one candidate a lane serves 4
+    pairs, where that still leaves FILL_WARPS warps; else 1, so that a small
+    search spreads over more warps (on the H100, 2 was never the best:
+    PERF.md, section 6)."""
+    return 4 if queries >= 4 * FILL_WARPS else 1
 
 
 def _check_points(name: str, t: torch.Tensor) -> None:
@@ -48,6 +59,7 @@ def knn_point(k: int, support: torch.Tensor, query: torch.Tensor) -> Tuple[torch
     with torch.cuda.device(support.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.pasnl_knn(support.data_ptr(), query.data_ptr(), dist.data_ptr(),
-                                   idx.data_ptr(), B, N, M, k, stream), "knn kernel")
+                                   idx.data_ptr(), B, N, M, k, queries_a_warp(B * M), stream),
+                     "knn kernel")
     launches += 1
     return dist, idx

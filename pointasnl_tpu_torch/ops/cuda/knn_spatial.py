@@ -15,9 +15,14 @@ order with a +inf bound so that its loop may read one past the end; the
 kernel's loop stops at the last segment instead. The output does not depend
 on the permutation, so only the plan's logic follows JAX, not its sort order.
 
+``pack_points`` packs the sorted support as (x, y, z, original id) in one
+16-byte word a point, the kernel's one load a candidate.
+
 ``emulate`` runs the kernel's visit rule (gates, early stop, (d2, id) merge)
 in plain PyTorch on the plan, so that the pruning logic is tested where the
-kernel cannot run. Only the tests use it.
+kernel cannot run: with the queries of a warp walking together, the rule of
+this kernel, or with a whole tile, the rule of the streaming kernel. Only
+the tests use it.
 """
 
 from __future__ import annotations
@@ -29,12 +34,13 @@ import torch
 from pointasnl_tpu_torch.ops.cuda import _build
 from pointasnl_tpu_torch.ops.geometry import _sqdist_xyz, gather_point, pairwise_sqdist
 
-TILE_M = 128  # queries a tile (a block), csrc/knn_spatial.cu:kTile
+TILE_M = 128  # queries a tile of the plan, csrc/knn_spatial.cu:kTile
 # Support points a segment: 64, widened by powers of two so that a tile's
 # visit order holds at most MAX_SEGMENTS segments (csrc/knn_spatial.cu).
 MIN_SEG_W, MAX_SEGMENTS = 64, 2048
 MAX_K = 128
 MAX_N = 1 << 21  # segments of 1024
+LANE_MAX_K = 4  # k up to which a lane takes a query of its own
 # Absolute slack on the segment radii, as a fraction of the scene's extent:
 # the float32 error of |q - c| - r is a few ulps of the coordinates, not of
 # the (small) difference (knn_spatial.py:_EPS_FRAC).
@@ -122,6 +128,19 @@ def make_plan(support: torch.Tensor, query: torch.Tensor, self_query: bool,
                 torch.gather(lb2, 2, order))
 
 
+def walk_rows(k: int) -> int:
+    """Queries that walk a tile's order together in the kernel: one, a warp
+    each with its list across the lanes, or 32, a lane each, for
+    k <= LANE_MAX_K (csrc/knn_select.cuh:kLaneK)."""
+    return 32 if k <= LANE_MAX_K else 1
+
+
+def pack_points(s_sorted: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) float32 points and (B, N) int32 ids -> (B, N, 4) float32
+    (x, y, z, id), the id's bits stored as they are in the fourth float."""
+    return torch.cat([s_sorted, ids.view(torch.float32)[..., None]], dim=-1)
+
+
 def _unsort(rows: torch.Tensor, qperm: torch.Tensor) -> torch.Tensor:
     """Rows (B, M, k) in sorted order -> the caller's order."""
     out = torch.empty_like(rows)
@@ -157,13 +176,14 @@ def _launch(k: int, support: torch.Tensor, query: torch.Tensor, tested):
         raise RuntimeError(f"spatial knn kernel: the library's tile is not the plan's {TILE_M}")
     seg_w = segment_width(N)
     plan = make_plan(support, query, self_query, seg_w)
+    points = pack_points(plan.s_sorted, plan.ids)
     n_seg, n_tile = plan.spheres.shape[1], plan.order.shape[1]
     with torch.cuda.device(support.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.pasnl_knn_spatial(
-            plan.q_sorted.data_ptr(), plan.s_sorted.data_ptr(), plan.ids.data_ptr(),
-            plan.spheres.data_ptr(), plan.order.data_ptr(), plan.lower.data_ptr(),
-            dist.data_ptr(), idx.data_ptr(), tested, B, N, M, k, seg_w, n_seg, n_tile, stream),
+            plan.q_sorted.data_ptr(), points.data_ptr(), plan.spheres.data_ptr(),
+            plan.order.data_ptr(), plan.lower.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+            tested, B, N, M, k, seg_w, n_seg, n_tile, walk_rows(k), stream),
             "spatial knn kernel")
     launches += 1
     return _unsort(dist, plan.qperm), _unsort(idx, plan.qperm)
@@ -186,17 +206,23 @@ def pairs_tested(k: int, support: torch.Tensor, query: torch.Tensor) -> int:
 
 
 def emulate(k: int, support: torch.Tensor, query: torch.Tensor, *, seg_w: int = None,
-            tile_m: int = TILE_M) -> Tuple[torch.Tensor, torch.Tensor, int]:
+            tile_m: int = TILE_M, walk: int = None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The kernel's visit rule in plain PyTorch: (dist2, idx, pairs tested).
 
-    A tile walks its segments nearest first and stops when the next lower
-    bound exceeds the largest kth d2 of its rows; a row tests a segment only
-    if max(0, |q - c| - r)^2 <= its kth d2, and keeps the k least
-    (d2, original id) of its list and the candidates. For tests.
+    The queries of a tile go in groups of `walk` (the kernel's,
+    ``walk_rows(k)``, by default; `tile_m` for the streaming
+    kernel's tile-wide walk). A group walks its tile's segments nearest
+    first and stops when the next lower bound exceeds the largest kth d2 of
+    its rows; a row tests a segment only if max(0, |q - c| - r)^2 <= its kth
+    d2, and keeps the k least (d2, original id) of its list and the
+    candidates. For tests.
     """
     self_query = query is support
     B, N, _ = support.shape
     seg_w = seg_w or segment_width(N)
+    walk = walk or walk_rows(k)
+    if tile_m % walk:
+        raise ValueError(f"a walk of {walk} rows does not divide the tile of {tile_m}")
     plan = make_plan(support.detach().float(), query.detach().float(), self_query, seg_w,
                      tile_m)
     M = plan.q_sorted.shape[1]
@@ -208,14 +234,16 @@ def emulate(k: int, support: torch.Tensor, query: torch.Tensor, *, seg_w: int = 
             q = plan.q_sorted[b, t * tile_m:(t + 1) * tile_m]
             run_d = torch.full((q.shape[0], k), float("inf"))
             run_i = torch.full((q.shape[0], k), _INT_MAX, dtype=torch.int64)
-            bound = float("inf")
+            group = torch.arange(q.shape[0]) // walk
+            bound = torch.full((int(group[-1]) + 1,), float("inf"))  # a group's largest kth
             for v in range(plan.order.shape[2]):
-                if float(plan.lower[b, t, v]) > bound:
+                walking = plan.lower[b, t, v] <= bound
+                if not bool(walking.any()):
                     break
                 seg = int(plan.order[b, t, v])
                 c, r = plan.spheres[b, seg, :3], plan.spheres[b, seg, 3]
                 gap = torch.clamp_min(torch.sqrt(_sqdist_xyz(q - c)) - r, 0.0)
-                rows = gap * gap <= run_d[:, -1]
+                rows = (gap * gap <= run_d[:, -1]) & walking[group]
                 if not bool(rows.any()):
                     continue
                 lo, hi = seg * seg_w, min(N, (seg + 1) * seg_w)
@@ -229,7 +257,7 @@ def emulate(k: int, support: torch.Tensor, query: torch.Tensor, *, seg_w: int = 
                 run_d[rows] = torch.gather(cd, 1, by_d)
                 run_i[rows] = torch.gather(ci, 1, by_d)
                 tested += int(rows.sum()) * (hi - lo)
-                bound = float(run_d[:, -1].max())
+                bound = bound.scatter_reduce(0, group, run_d[:, -1], "amax", include_self=False)
             dist[b, t * tile_m:t * tile_m + q.shape[0]] = run_d.clamp_min(0.0)
             idx[b, t * tile_m:t * tile_m + q.shape[0]] = run_i
     return _unsort(dist, plan.qperm), _unsort(idx, plan.qperm).to(torch.int32), tested

@@ -116,13 +116,14 @@ def pairs_tested(k: int, support: torch.Tensor, query: torch.Tensor) -> int:
 def emulate(k: int, support: torch.Tensor, query: torch.Tensor, *, seg_w: int = None,
             tile_m: int = None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The kernel's visit rule in plain PyTorch: (dist2, idx, pairs tested).
-    The spatial kernel's rule (``knn_spatial.emulate``) at this kernel's tile
-    and segment width, with k > N filled by the last valid neighbour. For
-    tests."""
+    ``knn_spatial.emulate`` with the whole tile walking together, at this
+    kernel's tile and segment width, with k > N filled by the last valid
+    neighbour. For tests."""
     B, N, _ = support.shape
     tile_m = tile_m or tile_for(k)
     seg_w = seg_w or segment_width(N, query.shape[1], k, B)
-    dist, idx, tested = _spatial.emulate(k, support, query, seg_w=seg_w, tile_m=tile_m)
+    dist, idx, tested = _spatial.emulate(k, support, query, seg_w=seg_w, tile_m=tile_m,
+                                         walk=tile_m)
     if k > N:
         dist = torch.cat([dist[..., :N], dist[..., N - 1:N].expand(-1, -1, k - N)], dim=-1)
         idx = torch.cat([idx[..., :N], idx[..., N - 1:N].expand(-1, -1, k - N)], dim=-1)

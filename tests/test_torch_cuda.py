@@ -107,10 +107,43 @@ def test_fps_kernel_matches_plain(dev, B, N, npoint, dup):
     (1, 12288, 64, 128, "disjoint"),  # the largest N and k the kernel takes
     (1, 10240, 10240, 32, "subset"),  # the seg step's stem self-kNN, one cloud
     (4, 1280, 10240, 3, "disjoint"),  # three_nn of the seg decoder's last level
+    # The register list (csrc/knn_select.cuh) at its edges: equal points (the
+    # indices 0 .. k-1), exact ties at several distances, k of 3, 64 and 128
+    # (one, two and four entries a lane), k > N at every list size, N not a
+    # multiple of the kernel's 1024-point tile, and copies of points on both
+    # sides of a tile boundary.
+    (2, 1000, 300, 32, "equal"),
+    (1, 3000, 200, 128, "equal"),
+    (2, 4096, 512, 32, "lattice"),
+    (1, 4096, 300, 64, "lattice"),
+    (1, 4096, 300, 128, "lattice"),
+    (2, 2000, 400, 3, "lattice"),
+    (2, 1000, 300, 3, "equal"),       # k <= 4: each lane's own list, merged at the end
+    (2, 3, 50, 4, "disjoint"),        # k > N, lane lists
+    (4, 1280, 10240, 1, "disjoint"),
+    (2, 3000, 1000, 64, "subset"),
+    (2, 12288, 500, 128, "subset"),
+    (2, 40, 30, 64, "disjoint"),      # k > N, two entries a lane
+    (2, 100, 30, 128, "disjoint"),    # k > N, four entries a lane
+    (2, 1025, 300, 32, "subset"),     # a tile and one point
+    (3, 2049, 700, 64, "disjoint"),   # two tiles and one point, B3
+    (2, 2048, 300, 32, "straddle"),
+    (1, 3072, 300, 128, "straddle"),
 ])
 def test_knn_kernel_matches_plain(dev, B, N, M, k, case):
     support = _cloud(N + M, B, N, dup=N // 2 if case == "duplicates" else 0)
-    query = support[:, : N: N // M][:, :M].clone() if case != "disjoint" else _cloud(k, B, M)
+    if case == "equal":  # every distance the same: the indices 0 .. k-1
+        support = _cloud(N, B, 1).expand(B, N, 3).contiguous()
+    if case == "lattice":  # integer points: many exact ties at several distances
+        g = np.stack(np.meshgrid(*[np.arange(16, dtype=np.float32)] * 3, indexing="ij"), -1)
+        support = torch.from_numpy(np.ascontiguousarray(g.reshape(1, 4096, 3)[:, :N])).expand(
+            B, N, 3).contiguous()
+    if case == "straddle":  # copies of points 0..99 at 974..1073 and 2000..2099 (tiles of 1024)
+        support[:, 974:1074] = support[:, :100]
+        if N >= 2100:
+            support[:, 2000:2100] = support[:, :100]
+    query = (support[:, : N: N // M][:, :M].clone() if case not in ("disjoint", "straddle")
+             else support[:, :M].clone() if case == "straddle" else _cloud(k, B, M))
     support, query = support.to(dev), query.to(dev)
     got_d, got_i = cuda_knn.knn_point(k, support, query)
     want_d, want_i = tg.knn_point(k, support, query)
@@ -119,6 +152,8 @@ def test_knn_kernel_matches_plain(dev, B, N, M, k, case):
     torch.testing.assert_close(got_d, want_d, rtol=1e-6, atol=1e-7)
     if case == "subset":  # each query is its own first neighbour
         assert torch.equal(got_i[..., 0].long(), torch.arange(0, N, N // M, device=dev)[:M].expand(B, M))
+    if case == "equal":
+        assert torch.equal(got_i.long(), torch.arange(k, device=dev).expand(B, M, k))
 
 
 def test_fps_cluster_design_is_stated_on_the_card(dev):
@@ -314,11 +349,31 @@ def spatial_case(case):
     if case == "k3 over an eighth":  # three_nn's regime
         x = _scene(5, 1, 131072)
         return x[:, ::8].contiguous(), x, 3
+    if case == "all equal":  # every distance 0: the indices 0 .. k-1, every segment visited
+        x = torch.from_numpy(rng.randn(1, 1, 3).astype(np.float32)).expand(1, 20000, 3)
+        x = x.contiguous()
+        return x, x, 32
+    if case == "lattice k64":  # integer points: exact ties at several distances
+        g = np.stack(np.meshgrid(*[np.arange(24, dtype=np.float32)] * 3, indexing="ij"), -1)
+        x = torch.from_numpy(np.ascontiguousarray(g.reshape(1, -1, 3)))
+        return x, x, 64
+    if case == "lattice k3, disjoint":
+        g = np.stack(np.meshgrid(*[np.arange(24, dtype=np.float32)] * 3, indexing="ij"), -1)
+        q = (rng.randint(0, 46, (1, 3000, 3)) / 2.0).astype(np.float32)  # on and between nodes
+        return torch.from_numpy(np.ascontiguousarray(g.reshape(1, -1, 3))), torch.from_numpy(q), 3
+    if case == "k128":  # four entries a lane
+        x = _scene(6, 1, 20000)
+        return x, x, 128
+    if case == "triplicates":  # three copies of each point: copies on both sides of segments
+        x = _scene(7, 1, 6001)
+        x = torch.cat([x, x, x], dim=1)
+        return x, x, 16
     raise ValueError(case)
 
 
 SPATIAL_CASES = ["duplicates", "far from the origin", "ragged N", "gaussian", "B2", "disjoint",
-                 "k3 over an eighth"]
+                 "k3 over an eighth", "all equal", "lattice k64", "lattice k3, disjoint", "k128",
+                 "triplicates"]
 
 
 @pytest.mark.parametrize("case", SPATIAL_CASES)
@@ -333,10 +388,12 @@ def test_spatial_knn_kernel_matches_plain(dev, case):
     assert got_i.dtype == torch.int32 and got_i.shape == (*query.shape[:2], k)
     assert torch.equal(got_i, want_i)
     torch.testing.assert_close(got_d, want_d, rtol=1e-6, atol=1e-7)
-    if case in ("ragged N", "gaussian", "B2"):  # self-queries without duplicates:
-        # each point is its own first neighbour
+    if case in ("ragged N", "gaussian", "B2", "lattice k64", "k128"):  # self-queries without
+        # duplicates: each point is its own first neighbour
         assert torch.equal(got_i[..., 0].long(), torch.arange(support.shape[1], device=dev)
                            .expand(support.shape[0], -1))
+    if case == "all equal":
+        assert torch.equal(got_i.long(), torch.arange(k, device=dev).expand(*got_i.shape))
 
 
 def test_spatial_knn_prunes_a_scene(dev):
@@ -345,6 +402,20 @@ def test_spatial_knn_prunes_a_scene(dev):
     x = _scene(6, 1, 65536, extent=6.0 / 2 ** 0.5).to(dev)
     tested = cuda_spatial.pairs_tested(32, x, x)
     assert 0 < tested < 0.1 * 65536 ** 2
+
+
+@pytest.mark.parametrize("k", [3, 16])
+def test_spatial_knn_tests_the_pairs_of_its_visit_rule(dev, k):
+    """The kernel tests exactly the pairs that knn_spatial.emulate's walk
+    (by warp for k = 16, by lane for k = 3) tests on the CPU, and returns
+    its rows."""
+    x = _scene(9, 1, 4096, extent=1.5)
+    d, i, tested = cuda_spatial.emulate(k, x, x)
+    xd = x.to(dev)
+    got_d, got_i = cuda_spatial.knn_point(k, xd, xd)
+    torch.cuda.synchronize()
+    assert cuda_spatial.pairs_tested(k, xd, xd) == tested
+    assert torch.equal(got_i.cpu(), i) and torch.equal(got_d.cpu(), d)
 
 
 def test_kernels_refuse_sizes_beyond_their_limits(dev):

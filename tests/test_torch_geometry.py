@@ -122,10 +122,18 @@ def _knn_case(case):
         return s, s[:, 100:200].copy(), 16
     if case == "k_gt_n":
         return _cloud(4, 2, 10), _cloud(5, 2, 7), 16
+    if case == "lattice":  # integer points: many exact ties at several distances
+        g = np.stack(np.meshgrid(*[np.arange(8, dtype=np.float32)] * 3, indexing="ij"), -1)
+        s = np.ascontiguousarray(g.reshape(1, 512, 3))
+        return s, s[:, ::5].copy(), 64
+    if case == "all_equal":  # every distance 0: the indices 0 .. k-1
+        s = np.repeat(_cloud(6, 2, 1), 300, axis=1)
+        return s, s[:, :40].copy(), 32
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("case", ["disjoint", "subset", "duplicates", "k_gt_n"])
+@pytest.mark.parametrize("case", ["disjoint", "subset", "duplicates", "k_gt_n", "lattice",
+                                  "all_equal"])
 def test_knn_matches_jax_oracle_and_pallas(case):
     support, query, k = _knn_case(case)
     got_d, got_i = tg.knn_point(k, torch.from_numpy(support), torch.from_numpy(query))
@@ -139,6 +147,8 @@ def test_knn_matches_jax_oracle_and_pallas(case):
     _assert_dist(got_d.numpy(), np.asarray(pal_d))
     if case == "subset":  # each query is its own first neighbour
         np.testing.assert_array_equal(got_i[..., 0].numpy(), np.arange(0, 256, 4)[None].repeat(2, 0))
+    if case == "all_equal":
+        np.testing.assert_array_equal(got_i.numpy(), np.broadcast_to(np.arange(k), got_i.shape))
 
 
 def test_gather_and_group_match_jax():

@@ -237,6 +237,25 @@ def test_streaming_visit_rule_is_exact(case):
         assert tested < 0.5 * pairs
 
 
+def test_streaming_visit_rule_walks_by_tile():
+    """The streaming kernel's whole tile walks its order together (the
+    spatial kernel's rule with one walk a tile), so on the same plan it
+    tests at least the pairs of the spatial kernel's walk by warp."""
+    support, query, k = _emulate_case("self k32 B2 N700")
+    d, i, tested = cuda_streaming.emulate(k, support, query)
+    tile_m = cuda_streaming.tile_for(k)
+    seg_w = cuda_streaming.segment_width(700, 700, k, 2)
+    for walk in (tile_m, 1):
+        wd, wi, wt = cuda_spatial.emulate(k, support, query, seg_w=seg_w, tile_m=tile_m,
+                                          walk=walk)
+        np.testing.assert_array_equal(wi.numpy(), i.numpy())
+        np.testing.assert_array_equal(wd.numpy(), d.numpy())
+        if walk == tile_m:
+            assert wt == tested
+        else:
+            assert 0 < wt <= tested
+
+
 def test_streaming_tile_and_segments_bound_the_plan():
     assert [cuda_streaming.tile_for(k) for k in (1, 128, 129, 256, 257, 512)] == [
         128, 128, 64, 64, 32, 32]

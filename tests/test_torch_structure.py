@@ -55,9 +55,9 @@ def test_import_scan_catches_forbidden_imports():
 
 
 def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
-    """The build covers every csrc/*.cu, lands in the checkout's gitignored
-    build/ directory, and fails loudly, with nothing built, where there is no
-    CUDA toolkit."""
+    """The build covers every csrc/*.cu, keys on them and the headers they
+    share, lands in the checkout's gitignored build/ directory, and fails
+    loudly, with nothing built, where there is no CUDA toolkit."""
     import torch.utils.cpp_extension as cpp_extension
 
     from pointasnl_tpu_torch.ops.cuda import _build
@@ -66,6 +66,10 @@ def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
     assert [p.name for p in sources] == ["ball_query.cu", "flash_attention.cu", "fps.cu",
                                          "gather_backward.cu", "knn.cu", "knn_spatial.cu",
                                          "knn_streaming.cu"]
+    assert [p.name for p in _build._inputs()] == ["ball_query.cu", "flash_attention.cu", "fps.cu",
+                                                  "gather_backward.cu", "knn.cu",
+                                                  "knn_select.cuh", "knn_spatial.cu",
+                                                  "knn_streaming.cu"]
     assert _build.BUILD_ROOT == PKG.parent / "build" / "pointasnl_tpu_torch"
     assert _build._digest(sources) == _build._digest(sources)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -74,6 +78,23 @@ def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.library()
+
+
+def test_kernel_build_key_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """An edit to a header that two kernels include builds anew: the key of
+    the build directory hashes csrc/*.cuh beside csrc/*.cu."""
+    import shutil
+
+    from pointasnl_tpu_torch.ops.cuda import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._digest(_build._inputs())
+    header = csrc / "knn_select.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    assert _build._digest(_build._inputs()) != before
+    assert [p.name for p in _build._sources()] == [p.name for p in sorted(_build.CSRC.glob("*.cu"))]
 
 
 @pytest.mark.parametrize("name", ["pointasnl_cls", "pointasnl_sem_seg_res"])

@@ -154,6 +154,40 @@ def test_spatial_visit_rule_is_exact(case):
         assert tested < 0.5 * 4096 * 4096
 
 
+@pytest.mark.parametrize("case", ["self 1024 k32", "duplicates", "surface scene, k3 over its eighth"])
+def test_spatial_warp_walk_tests_no_more_pairs_than_the_tile_walk(case):
+    """The spatial kernel's queries walk one at a time (a warp each), or 32
+    at a time for k <= 4 (a lane each), the streaming kernel's a tile at a
+    time, on the same plan: all exact, and a smaller walk stops no later."""
+    s, q, k, seg_w, tile_m = _spatial_case(case)
+    support = torch.from_numpy(s)
+    query = support if q is None else torch.from_numpy(q)
+    want_d, want_i = tg.knn_point(k, support, query)
+    tested = {}
+    for walk in (1, 32, tile_m):
+        d, i, tested[walk] = ks.emulate(k, support, query, seg_w=seg_w, tile_m=tile_m, walk=walk)
+        np.testing.assert_array_equal(i.numpy(), want_i.numpy())
+        np.testing.assert_array_equal(d.numpy(), want_d.numpy())
+    assert 0 < tested[1] <= tested[32] <= tested[tile_m]
+    with pytest.raises(ValueError, match="does not divide"):
+        ks.emulate(k, support, query, seg_w=seg_w, tile_m=tile_m, walk=3)
+
+
+def test_spatial_points_pack_xyz_and_id_in_one_word():
+    """The spatial kernel reads a candidate as one float4: x, y, z and the
+    original index's int32 bits, unchanged (small ids are denormal floats)."""
+    x = torch.from_numpy(_cloud(60, 2, 300))
+    plan = ks.make_plan(x, x, True, 64)
+    ids = plan.ids.clone()
+    ids[1, :3] = torch.tensor([0, 1, ks.MAX_N - 1], dtype=torch.int32)
+    packed = ks.pack_points(plan.s_sorted, ids)
+    assert packed.dtype == torch.float32 and packed.shape == (2, 300, 4) and packed.is_contiguous()
+    assert packed.stride() == (1200, 4, 1)  # 16 bytes a point
+    assert torch.equal(packed[..., :3], plan.s_sorted)
+    assert torch.equal(packed[..., 3].contiguous().view(torch.int32), ids)
+    assert torch.equal(plan.s_sorted[0], x[0, plan.ids[0].long()])
+
+
 def test_spatial_visit_rule_matches_the_pallas_kernel():
     s, _, k, seg_w, tile_m = _spatial_case("disjoint 170q/600 k16")
     q = np.random.RandomState(9).randn(2, 170, 3).astype(np.float32)
