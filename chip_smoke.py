@@ -7,7 +7,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
      the torch and CUDA versions and the TF32 switches (both off); build the
      kernels from ``pointasnl_tpu_torch/csrc`` and print the build seconds.
   2. FPS kernel against its plain PyTorch version on the card: indices exact
-     at both slices' shapes and at the edge cases.
+     at both slices' shapes and at the edge cases, among them the block
+     design's (fps_block_cases: each side of every boundary of its plan,
+     every pick up to 1025 points and of 10240, all points equal, lattices,
+     B 1 to 16), each in the design it routes to and, where that is the
+     cluster design (a small batch of 8192 to 10240 points), in the block
+     design too.
   3. kNN kernel against its plain version on the card: indices exact and
      squared distances within 1e-6 relative, at both slices' shapes (the
      10240 x 10240 stem one cloud at a time) and the edge cases, among them
@@ -54,8 +59,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
      spatial kNN's search (off the path, to compare them), each resident and
      spatial time beside the shared-memory design's
      (KNN_SHARED_MEMORY_DESIGN_MS); the gather
-     backward on a seg step's 19 gathers, each call with its sort, beside
-     index_add_; the B8 x 1024 cls forward; the B4 x 10240 train step
+     backward on a seg step's 19 gathers, each call with its sort, and the
+     19 as the step runs them (12 sorts), beside index_add_; the block-design
+     FPS and the flash forward beside their parent designs' device ms
+     (FPS_SHARED_MEMORY_DESIGN_MS, FLASH_FWD_TWO_LANE_DESIGN_MS); the B8 x
+     1024 cls forward; the B4 x 10240 train step
      (p50, p90, points/s) and serve forward; one torch.profiler window
      over 3 train steps (device-busy share, device time by kernel,
      the kernels' share of the step); the whole-scene request (p50, p90,
@@ -63,7 +71,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
  11. Slice 4, flash attention: the forward and backward kernels against
      their plain versions on the card (o and lse, dq, dk and dv within
      FLASH_RTOL and FLASH_GRAD_RTOL, below) at the seg step's four non-local
-     levels, cls's two layers and edge cases, and one forward past the TPU
+     levels, cls's two layers and edge cases (the forward's tile, chunk and
+     key ranges, C = 1, C != D, C = D = 256), and one forward past the TPU
      kernel's VMEM envelope; then ``PointASNLSemSegRes(21,
      nl_use_flash=True)`` takes 3 train steps at B4 x 10240 and answers 2
      requests, as in phase 6: a step must launch the flash forward 4 and
@@ -200,6 +209,21 @@ KNN_SHARED_MEMORY_DESIGN_MS = {
     ("scene_2228224", "B1 69632q/17408 k3"): 0.5633,
     ("scene_2228224", "B1 278528q/69632 k3"): 1.5539,
     ("scene_2228224", "B1 2228224q/278528 k3"): 8.5044}
+# Device ms of the parent designs of the kernels slice 9 redesigned, on the
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6:
+# scripts/torch_kernel_turns.py on the parent tree), by (path, shape):
+# printed beside the new designs' times. The block-design FPS held its cloud
+# and running minima in shared memory and crossed two block barriers a pick;
+# the flash forward spread a row over 2 lanes (at C = D = 32), a block of 8
+# warps holding 16 rows.
+FPS_SHARED_MEMORY_DESIGN_MS = {
+    ("cls", "B8 N1024->512"): 0.3428, ("cls", "B8 N512->128"): 0.0621,
+    ("seg", "B4 N10240->1280"): 2.1058, ("seg", "B4 N1280->320"): 0.2396,
+    ("seg", "B4 N320->80"): 0.0364, ("seg", "B4 N80->40"): 0.0173,
+    ("scene", "B1 N4096->1024"): 1.0291, ("scene", "B1 N1024->512"): 0.3429}
+FLASH_FWD_TWO_LANE_DESIGN_MS = {
+    ("seg_flash", "B4 1280q/10240 C32 D32"): 0.8008, ("seg_flash", "B4 320q/1280 C32 D32"): 0.0489,
+    ("seg_flash", "B4 80q/320 C64 D64"): 0.0289, ("seg_flash", "B4 40q/80 C128 D128"): 0.0180}
 # (B, N, npoint) and (B, N support, M query, k) of slice 1's two SA layers.
 FPS_SHAPES = [(8, 1024, 512), (8, 512, 128)]
 KNN_SHAPES = [(8, 1024, 512, 32), (8, 512, 128, 64)]
@@ -267,6 +291,14 @@ FLASH_CASES = {
     "scaled=False": (2, 100, 500, 32, 32, False, 1.0),
     "q x 30 (the max moves across chunks)": (2, 100, 3000, 32, 32, True, 30.0),
     "B 1": (1, 300, 700, 32, 32, True, 1.0),
+    # The forward's tile of 64 rows, chunk of 64 keys and key ranges, and
+    # widths off its padding:
+    "M 65 (a tile and a row)": (2, 65, 300, 32, 32, True, 1.0),
+    "N 65 (a chunk and a key)": (2, 100, 65, 32, 32, True, 1.0),
+    "N 1025 at B1 M64 (9 key ranges, the last of one key)": (1, 64, 1025, 32, 32, True, 1.0),
+    "C 1": (2, 50, 300, 1, 1, True, 1.0),
+    "C 32 D 64": (2, 90, 700, 32, 64, True, 1.0),
+    "C = D = 256": (2, 100, 300, 256, 256, True, 1.0),
 }
 FLASH_FWD_ONLY = {"past the TPU's envelope, N 131072": (1, 512, 131072, 32, 32, True, 1.0)}
 # |kernel - plain| may be at most FLASH_RTOL (o, lse) or FLASH_GRAD_RTOL
@@ -413,13 +445,16 @@ def fps_notes(r) -> str:
             + (f" (the barrier-exchange design: {old:.4f} ms)" if old else ""))
 
 
-def knn_notes(name, r) -> str:
-    """A resident or spatial kNN row's device ms before the register lists,
-    where there is one."""
-    old = KNN_SHARED_MEMORY_DESIGN_MS.get((r["path"], r["shape"]))
-    if name not in ("knn_resident", "knn_spatial") or old is None:
-        return ""
-    return f" (the shared-memory design: {old:.4f} ms, {old / r['ms']:.2f}x)"
+def parent_notes(name, r) -> str:
+    """A redesigned kernel's row: its parent design's device ms at the
+    shape, where there is one."""
+    what, table = {"knn_resident": ("the shared-memory design", KNN_SHARED_MEMORY_DESIGN_MS),
+                   "knn_spatial": ("the shared-memory design", KNN_SHARED_MEMORY_DESIGN_MS),
+                   "fps": ("the shared-memory design", FPS_SHARED_MEMORY_DESIGN_MS),
+                   "flash_fwd": ("the two-lane design", FLASH_FWD_TWO_LANE_DESIGN_MS)
+                   }.get(name, ("", {}))
+    old = table.get((r["path"], r["shape"]))
+    return "" if old is None else f" ({what}: {old:.4f} ms, {old / r['ms']:.2f}x)"
 
 
 def knn_bound(B, N, M, k):
@@ -441,6 +476,16 @@ def flash_bwd_bound(B, M, N, C, D, passes: int = FLASH_BWD_TF32_PASSES):
     if passes is None:
         return bound(nbytes, ops)
     return bound(nbytes, ops * passes, PEAK_TF32_FLOPS)
+
+
+def flash_fwd_symbols(B, M, N, C, D):
+    """The kernels one forward call launches at this shape: the forward
+    kernel and, where a query tile's keys are split into ranges, their
+    merge."""
+    from pointasnl_tpu_torch.ops.cuda import _build
+
+    split = _build.library().pasnl_flash_fwd_scratch(B, M, N, C, D) > 0
+    return ("flash_fwd_kernel",) + ("flash_fwd_merge_kernel",) * split
 
 
 def flash_bwd_symbols(B, M, N, C, D):
@@ -501,6 +546,28 @@ def seg_levels(dev, seed: int = 21):
     return levels
 
 
+def fps_block_cases(dev):
+    """(name, xyz, npoint) of the block design's edge cases: each side of its
+    plan's boundaries (every pick up to 1025 points), every pick of 10240,
+    all points equal (every pick is point 0), lattices and B 1 to 16."""
+    from pointasnl_tpu_torch.ops.cuda import fps
+
+    cases = [(f"B2 N{n} -> {n if n <= 1025 else 300} (block plan edge)", cloud(n + 5, 2, n, dev),
+              n if n <= 1025 else 300) for n in fps.block_plan_edges()]
+    return cases + [
+        ("B1 N10240 -> 10240 (every pick)", cloud(16, 1, 10240, dev), 10240),
+        ("all points equal B4 N100 -> 100 (one warp)",
+         cloud(17, 4, 1, dev).expand(4, 100, 3).contiguous(), 100),
+        ("all points equal B4 N5000 -> 200", cloud(18, 4, 1, dev).expand(4, 5000, 3).contiguous(),
+         200),
+        ("lattice 10^3 B1 -> 1000", lattice(10, dev), 1000),
+        ("lattice 21^3 B2 -> 1500", lattice(21, dev).expand(2, -1, 3).contiguous(), 1500),
+        ("duplicate points B2 N10240 -> 2000", cloud(19, 2, 10240, dev, dup=5120), 2000),
+        ("B16 N1280 -> 320", cloud(20, 16, 1280, dev), 320),
+        ("B16 N80 -> 40", cloud(21, 16, 80, dev), 40),
+        ("B1 N4096 -> 1024", cloud(22, 1, 4096, dev), 1024)]
+
+
 def phase_fps(dev) -> float:
     from pointasnl_tpu_torch.ops import geometry
     from pointasnl_tpu_torch.ops.cuda import fps
@@ -513,16 +580,38 @@ def phase_fps(dev) -> float:
     levels = seg_levels(dev)
     for a, n in zip(levels, SEG_LEVELS[1:]):  # the seg step's four, 10240 -> 1280 first
         cases.append((f"B{SEG_B} N{a.shape[1]} -> {n} (seg)", a, n))
+    cases += fps_block_cases(dev)
     worst = 0
     for name, x, npoint in cases:
-        got = fps.farthest_point_sample(npoint, x)
         want = geometry.farthest_point_sample(npoint, x)
-        torch.cuda.synchronize()
-        if got.shape != (x.shape[0], npoint) or not torch.equal(got, want):
-            raise RuntimeError(f"fps {name}: kernel and plain differ")
-        worst = max(worst, int((got - want).abs().max()))
-        print(f"fps {name}: indices exact")
+        routed = fps_design(x)
+        # A cloud that routes to the cluster design takes the block design too.
+        for design in dict.fromkeys([routed] + ["block"] * (x.shape[1] <= fps.BLOCK_MAX_N)):
+            got = fps._sample(design, npoint, x)
+            torch.cuda.synchronize()
+            if got.shape != (x.shape[0], npoint) or not torch.equal(got, want):
+                raise RuntimeError(f"fps {name} ({design} design): kernel and plain differ")
+            if name.startswith("all points equal") and got.any():
+                raise RuntimeError(f"fps {name} ({design} design): a pick other than point 0")
+            worst = max(worst, int((got - want).abs().max()))
+            print(f"fps {name} ({design} design{'' if design != routed else ', routed'}): "
+                  f"indices exact")
     return float(worst)
+
+
+def fps_design(x) -> str:
+    """The FPS design a call on x routes to on this card."""
+    from pointasnl_tpu_torch.ops.cuda import fps
+
+    B, N, _ = x.shape
+    return fps.design(N, fps.stated_cluster_max_n(), B, fps.stated_cluster_slots())
+
+
+def fps_symbol(x) -> str:
+    """What the kernel of the FPS design a call on x routes to holds in its
+    name in a profiler trace."""
+    return {"block": KERNELS["fps"]["symbol"], "cluster": FPS_CLUSTER_SYMBOL,
+            "grid": FPS_GRID_SYMBOL}[fps_design(x)]
 
 
 def check_knn(what: str, got, want, self_rows=None) -> float:
@@ -914,7 +1003,9 @@ def phase_card_vs_cpu(dev, flash: bool = False):
 
 def seg_gathers(dev):
     """(dout, idx, n) of each gather backward of one B4 x 10240 seg train step,
-    recorded at the kernel's wrapper, in the order the step launched them."""
+    recorded at the kernel's wrapper, in the order the step launched them;
+    idx as the step passed it, so the gathers that share an index tensor
+    share its plan (one sort) here too."""
     from pointasnl_tpu_torch.models import PointASNLSemSegRes
     from pointasnl_tpu_torch.ops.cuda import gather_backward
 
@@ -925,7 +1016,7 @@ def seg_gathers(dev):
     launch, segments = gather_backward.gather_backward, gather_backward.segments
 
     def record(dout, idx, n):
-        cases.append((dout.detach().clone(), idx.clone(), n))
+        cases.append((dout.detach().clone(), idx, n))
         return launch(dout, idx, n)
 
     def count(idx, n):
@@ -1332,8 +1423,8 @@ def time_kernels(dev, card, gathers):
     for B, N, npoint in FPS_SHAPES:
         x = cloud(11, B, N, dev)
         add("fps", "cls", f"B{B} N{N}->{npoint}", lambda: geometry.farthest_point_sample(npoint, x),
-            lambda: fps.farthest_point_sample(npoint, x), fps_bound(B, N, npoint), fps_n=N,
-            fps_npoint=npoint)
+            lambda: fps.farthest_point_sample(npoint, x), fps_bound(B, N, npoint),
+            symbol=fps_symbol(x), fps_n=N, fps_npoint=npoint)
     for B, N, M, k in KNN_SHAPES:
         s = cloud(12, B, N, dev)
         q = geometry.gather_point(s, fps.farthest_point_sample(M, s))
@@ -1344,7 +1435,7 @@ def time_kernels(dev, card, gathers):
         add("fps", "seg", f"B{SEG_B} N{a.shape[1]}->{n}",
             lambda: geometry.farthest_point_sample(n, a), lambda: fps.farthest_point_sample(n, a),
             fps_bound(SEG_B, a.shape[1], n), timing=HEAVY if n >= 320 else LIGHT,
-            fps_n=a.shape[1], fps_npoint=n)
+            symbol=fps_symbol(a), fps_n=a.shape[1], fps_npoint=n)
     for si, qi, k in SEG_KNN:
         s, q = levels[si], levels[qi]
         N, M = s.shape[1], q.shape[1]
@@ -1367,7 +1458,7 @@ def time_kernels(dev, card, gathers):
             lambda: fps.farthest_point_sample(n, a), fps_bound(1, N, n),
             timing=(10, 2) if N == SCENE_N else HEAVY if N > 1024 else LIGHT,
             plain_timing=SLOW if N == SCENE_N else None,
-            symbol=FPS_CLUSTER_SYMBOL if N > 10240 else None, fps_n=N, fps_npoint=n)
+            symbol=fps_symbol(a), fps_n=N, fps_npoint=n)
     for name, s, q, k in scene_spatial_shapes(levels):
         N, M = s.shape[1], q.shape[1]
         tested = knn_spatial.pairs_tested(k, s, q)  # one untimed call that counts
@@ -1402,7 +1493,7 @@ def time_kernels(dev, card, gathers):
         add("flash_fwd", "seg_flash", shape,
             lambda q=q, k=k, v=v, s=scale: fa.flash_forward_reference(q, k, v, s),
             lambda q=q, k=k, v=v, s=scale: cuda_flash.flash_forward(q, k, v, s),
-            flash_fwd_bound(B, M, N, C, D), timing,
+            flash_fwd_bound(B, M, N, C, D), timing, symbol=flash_fwd_symbols(B, M, N, C, D),
             library=lambda q=q, k=k, v=v, s=scale:
                 torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s))
         add("flash_bwd", "seg_flash", shape,
@@ -1415,9 +1506,18 @@ def time_kernels(dev, card, gathers):
     # the one PyTorch call computing the same sums, in another order.
     from pointasnl_tpu_torch.ops.cuda import gather_backward
 
-    def sorted_anew(dout, idx, n):  # a call with its sort: the plan kept on idx dropped
-        idx.__dict__.pop("_gather_backward_plans", None)
+    def drop_plans(idx):  # the sorts kept on the tensor idx views
+        (idx if idx._base is None else idx._base).__dict__.pop("_gather_backward_plans", None)
+
+    def sorted_anew(dout, idx, n):  # a call with its sort
+        drop_plans(idx)
         return gather_backward.gather_backward(dout, idx, n)
+
+    def as_a_step_runs_them():  # the 19 calls in order, each index tensor sorted once
+        for _, idx, _ in gathers:
+            drop_plans(idx)
+        for dout, idx, n in gathers:
+            gather_backward.gather_backward(dout, idx, n)
 
     for dout, idx, n in gathers:
         B, R, C = dout.shape
@@ -1438,7 +1538,7 @@ def time_kernels(dev, card, gathers):
                 lib += f", the streaming kernel {r['streaming_ms']:.4f} ms"
             if name == "fps":
                 tested += fps_notes(r)
-            tested += knn_notes(name, r)
+            tested += parent_notes(name, r)
             if "bound_f32_ms" in r:
                 tested += (f" ({FLASH_BWD_TF32_PASSES} TF32 passes on the tensor cores; at the "
                            f"float32 rate {r['bound_f32_ms']:.5f} ms)")
@@ -1447,6 +1547,18 @@ def time_kernels(dev, card, gathers):
                   f"{r['call_ms']:.4f} ms a call back to back, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
                   f"{lib}{tested}  [{card}]")
+    sorts, segments = [], gather_backward.segments
+    gather_backward.segments = lambda *a: sorts.append(1) or segments(*a)
+    try:
+        as_a_step_runs_them()
+    finally:
+        gather_backward.segments = segments
+    step_ms = statistics.median(time_ms(as_a_step_runs_them, *LIGHT))
+    add_ms = statistics.median(time_ms(lambda: [index_add(*g) for g in gathers], *LIGHT))
+    print(f"time gather_bwd [seg]: a step's {len(gathers)} calls as the step runs them "
+          f"({len(sorts)} sorts, the plans shared), {step_ms:.4f} ms by CUDA events back to back "
+          f"against index_add_'s {add_ms:.4f} ms on the same {len(gathers)} shapes: "
+          f"{'the kernel' if step_ms < add_ms else 'index_add_'} is faster  [{card}]")
     g = rows["gather_bwd"]
     print(f"time gather_bwd [seg]: a step's {len(g)} calls, each with its sort, "
           f"{sum(r['call_ms'] for r in g):.4f} ms back to back against index_add_'s "
@@ -1516,11 +1628,14 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
              "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": SEG_GATHER_BWD}
     # The dense step and the same step under nl_use_flash, in turns; a flash
     # backward is three CUDA kernels at each seg level (delta, then dQ, dK
-    # and dV, then the split dQ's sum).
+    # and dV, then the split dQ's sum), a forward one or two (the kernel,
+    # then the merge of its key ranges).
+    flash_kernels = {"flash_fwd": sum(len(flash_fwd_symbols(*shape)) for shape in FLASH_SEG),
+                     "flash_bwd": sum(len(flash_bwd_symbols(*shape)) for shape in FLASH_SEG)}
     seg = time_seg(card, {
         "seg": (seg_state, seg_step, seg_infer, dense, "profile_seg_step.json"),
-        "flash seg": (flash_state, flash_step, flash_infer,
-                      {**dense, "flash_fwd": 4, "flash_bwd": 12}, "profile_flash_seg_step.json"),
+        "flash seg": (flash_state, flash_step, flash_infer, {**dense, **flash_kernels},
+                      "profile_flash_seg_step.json"),
     }, batch)
     (step_p50, serve_p50), (flash_p50, flash_serve_p50) = seg["seg"], seg["flash seg"]
 
@@ -1542,7 +1657,7 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
 PROFILE_SYMBOLS = {"fps": ("fps_kernel", FPS_CLUSTER_SYMBOL, FPS_GRID_SYMBOL),
                    "knn": ("knn_kernel",), "knn_spatial": ("knn_spatial_kernel",),
                    "knn_streaming": ("knn_stream_kernel",), "ball_query": ("ball_query_kernel",),
-                   "flash_fwd": ("flash_fwd_kernel",),
+                   "flash_fwd": ("flash_fwd_kernel", "flash_fwd_merge_kernel"),
                    "flash_bwd": ("flash_bwd_delta_kernel", "flash_bwd_kernel",
                                  "flash_bwd_dq_sum_kernel"),
                    "gather_bwd": ("gather_backward_kernel",)}
@@ -1917,7 +2032,7 @@ def phase_big_scene(dev, card, levels, fps_plain_ms, searches):
                 tested += f", brute force's bound {r['brute_bound_ms']:.4f} ms"
             if name == "fps":
                 tested += fps_notes(r)
-            tested += knn_notes(name, r)
+            tested += parent_notes(name, r)
             print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms {where}, "
                   f"{r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{plain}, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}){tested}  [{card}]")

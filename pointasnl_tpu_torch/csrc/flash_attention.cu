@@ -16,7 +16,8 @@
 // accurate expf and logf (no fast-math intrinsics).
 //
 // What bounds it on the card: operations. The forward does 2 B M N (C + D)
-// flops and reads K and V once per query tile; the backward 2 B M N (3C + 2D).
+// flops and reads K and V once per query tile and key range; the backward
+// 2 B M N (3C + 2D).
 // At the seg step's level 1 (B4, M 1280, N 10240, C = D = 32) that is
 // 6.7 GFLOP forward and 16.8 backward against a few MB of operands. The
 // forward's flops run on the CUDA cores at the float32 rate (67 TFLOP/s:
@@ -24,19 +25,37 @@
 // TF32 rate (495 TFLOP/s: 0.102 ms), and would take 0.250 ms at the float32
 // rate.
 //
-// The forward's design:
-//   - A row is held by G lanes (G = P / 16, P the next power of two >= C, D
-//     and 16): each lane keeps 16 channels of q and 16 of the output
-//     accumulator in registers, so C = D = 128 costs 32 registers of row state
-//     a lane, and the q . k dot ends in log2(G) xor shuffles. C and D are
-//     zero-padded to P in shared memory, which adds exactly 0 to every dot.
-//   - Every warp of a block holds the same rows and takes its own share of
-//     each staged chunk of keys (a split over N inside the block), so a block
-//     of 8 warps covers only 32 / G rows: level 1 runs 320 blocks of 256
-//     threads on 132 SMs. The 8 partial states are merged at the end in a
-//     fixed order, so every run gives the same bits.
-//   - A chunk's keys past N are skipped: they add exactly 0 and leave the
-//     running max as it was (the TPU kernel masks them to -3e38).
+// The forward's design (FlashAttention-2's shape on the CUDA cores, in
+// float32: the forward's tolerance, 1e-5 of the output's scale, is ten
+// times tighter than the backward's, so no TF32):
+//   - A block owns 64 query rows (4 warps of 16) and streams a range of the
+//     keys in chunks of 64 (32 at P = 128, 16 at P = 256), K and V copied
+//     into shared memory by cp.async, 16 bytes a copy where the rows allow
+//     it, two stages in flight. Rows are padded to P + 4 floats, so the
+//     float4 loads of 4 or 8 different rows hit different banks.
+//   - Each thread computes a register tile of scores, 4 rows x 8 keys (4
+//     or 2 at the wider P), by outer-product FFMAs: each float4 loaded from
+//     shared memory feeds 16 or 32 FMAs, not 4. A row's 8 lanes share its
+//     running max by xor shuffles; each p is exponentiated once, by the lane
+//     that scored it, and goes through its warp's buffer in shared memory,
+//     32 keys at a time, to P V, a second register tile (4 rows x P / 8
+//     columns; a block takes at most 128 columns, so P = 256 runs two blocks
+//     a tile). At P = 32 a thread holds 128 registers and a block 53 KB of
+//     shared memory: four blocks an SM.
+//   - The keys of a query tile are split into ranges (fwd_split), up to 16,
+//     until the blocks come near ten an SM, so that a level with few tiles
+//     still fills the card (level 1: 80 tiles, 16 ranges of 640 keys; at
+//     levels 3 and 4, one range took 0.036 and 0.024 ms against 0.013 and
+//     0.012 split). A range holds at most 65536 keys, whatever the fill: a
+//     thread sums its range's products in order, and their rounding grows
+//     with their count (over 2228224 keys, |o - plain| was 4.7e-5 of the
+//     output's scale in one range, 1.2e-5 in 9, 4.2e-6 in 34; over 131072
+//     keys 1.2e-5 in one range, 6.5e-6 in 2: PERF.md). With more than one
+//     range, each block writes its range's max, sum and unnormalised
+//     output, and flash_fwd_merge_kernel merges them in range order. No
+//     atomics: every run gives the same bits.
+//   - A chunk's keys past its range score -inf: they add exactly 0 and leave
+//     the running max as it was (the TPU kernel masks them to -3e38).
 //
 // The backward's design. Its four products are (64 x P) (P x 64) tiles, so
 // they run on the tensor cores, mma.sync m16n8k8 in TF32 with float32
@@ -78,160 +97,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPerLane = 16;  // channels of a row a lane holds
 constexpr int kMaxWidth = 256;
-
-template <int G>
-struct Tile {
-  static constexpr int P = kPerLane * G;      // padded C and D
-  static constexpr int kRows = 32 / G;        // rows (or keys) a warp, and a block, holds
-  static constexpr int kSub = G >= 8 ? 8 : 16;  // keys (or rows) a warp takes from a chunk
-  static constexpr int kChunk = kWarps * kSub;  // keys (or rows) staged at once
-};
-
-template <int G>
-__device__ __forceinline__ float group_sum(float x) {
-  // Butterfly over the G lanes of a row: every lane ends with the same sum
-  // (float addition is commutative, so each step's two orders agree).
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// dst[r * P + c] = src[(row0 + r) * width + c], zero past `rows` or `width`.
-template <int P>
-__device__ __forceinline__ void stage(float* __restrict__ dst, const float* __restrict__ src,
-                                      int row0, int rows, int width, int count) {
-  for (int i = threadIdx.x; i < count * P; i += kThreads) {
-    const int r = i / P, c = i % P;
-    const int g = row0 + r;
-    dst[i] = (g < rows && c < width) ? src[(size_t)g * width + c] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void load_row(float (&dst)[kPerLane], const float* __restrict__ src,
-                                         bool live, int c0, int width) {
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i)
-    dst[i] = (live && c0 + i < width) ? src[c0 + i] : 0.0f;
-}
-
-template <int G>
-__device__ __forceinline__ float dot_row(const float (&a)[kPerLane], const float* __restrict__ b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kPerLane / 4; ++i) {
-    const float4 x = b4[i];
-    s = fmaf(a[4 * i + 0], x.x, s);
-    s = fmaf(a[4 * i + 1], x.y, s);
-    s = fmaf(a[4 * i + 2], x.z, s);
-    s = fmaf(a[4 * i + 3], x.w, s);
-  }
-  return group_sum<G>(s);
-}
-
-__device__ __forceinline__ void axpy_row(float (&acc)[kPerLane], float a,
-                                         const float* __restrict__ x) {
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-#pragma unroll
-  for (int i = 0; i < kPerLane / 4; ++i) {
-    const float4 y = x4[i];
-    acc[4 * i + 0] = fmaf(a, y.x, acc[4 * i + 0]);
-    acc[4 * i + 1] = fmaf(a, y.y, acc[4 * i + 1]);
-    acc[4 * i + 2] = fmaf(a, y.z, acc[4 * i + 2]);
-    acc[4 * i + 3] = fmaf(a, y.w, acc[4 * i + 3]);
-  }
-}
-
-// One block: batch element blockIdx.y, rows blockIdx.x * kRows + lane / G.
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int m, int n, int c, int d, float scale) {
-  using T = Tile<G>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sk = smem;
-  float* sv = sk + T::kChunk * T::P;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = (lane % G) * kPerLane;
-  const int row = blockIdx.x * T::kRows + lane / G;
-  const int b = blockIdx.y;
-  const bool live = row < m;
-  const size_t qrow = (size_t)b * m + (live ? row : 0);
-
-  float qr[kPerLane], acc[kPerLane];
-  load_row(qr, q + qrow * c, live, c0, c);
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
-  float mx = -INFINITY, l = 0.0f;
-
-  const float* kb = k + (size_t)b * n * c;
-  const float* vb = v + (size_t)b * n * d;
-  for (int base = 0; base < n; base += T::kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    stage<T::P>(sk, kb, base, n, c, T::kChunk);
-    stage<T::P>(sv, vb, base, n, d, T::kChunk);
-    __syncthreads();
-    const int j0 = warp * T::kSub;
-    const int cnt = min(T::kSub, n - base - j0);
-    if (cnt <= 0) continue;
-    float s[T::kSub];
-    float cmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < T::kSub; ++j) {
-      const float x = dot_row<G>(qr, sk + (j0 + j) * T::P + c0) * scale;
-      s[j] = j < cnt ? x : -INFINITY;
-      cmax = fmaxf(cmax, s[j]);
-    }
-    const float mnew = fmaxf(mx, cmax);  // finite: the chunk holds a key
-    const float alpha = expf(mx - mnew);  // 0 at the first keys (mx = -inf)
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < T::kSub; ++j) {
-      if (j < cnt) {
-        const float p = expf(s[j] - mnew);
-        l += p;
-        axpy_row(acc, p, sv + (j0 + j) * T::P + c0);
-      }
-    }
-    mx = mnew;
-  }
-
-  // Merge the warps' online-softmax states, warp 0 first.
-  __syncthreads();
-  float* red = smem;  // [warp][kPerLane + 2][32]
-  float* mine = red + warp * (kPerLane + 2) * 32 + lane;
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) mine[i * 32] = acc[i];
-  mine[kPerLane * 32] = mx;
-  mine[(kPerLane + 1) * 32] = l;
-  __syncthreads();
-  if (warp != 0 || !live) return;
-  float top = -INFINITY;
-  for (int w = 0; w < kWarps; ++w) top = fmaxf(top, red[(w * (kPerLane + 2) + kPerLane) * 32 + lane]);
-  float sum = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
-  for (int w = 0; w < kWarps; ++w) {
-    const float* st = red + w * (kPerLane + 2) * 32 + lane;
-    const float f = expf(st[kPerLane * 32] - top);  // 0 for a warp that saw no key
-    sum = fmaf(st[(kPerLane + 1) * 32], f, sum);
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) acc[i] = fmaf(st[i * 32], f, acc[i]);
-  }
-  float* orow = o + qrow * d;
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i)
-    if (c0 + i < d) orow[c0 + i] = acc[i] / sum;
-  if (c0 == 0) lse[qrow] = top + logf(sum);
-}
 
 // ---------------------------------------------------------------------------
 // The backward: delta = rowsum(dO * o), then dQ, dK and dV on the tensor cores.
@@ -340,6 +206,303 @@ __device__ __forceinline__ void load_own(float* dst, const float* src, int row0,
     const int r = i / P, c = i % P;
     const int g = row0 + r;
     dst[r * Bwd<P>::kStride + c] = (g < rows && c < width) ? src[(size_t)g * width + c] : 0.0f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward: float32 FFMA, a register tile of scores a thread.
+
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = kFwdWarps * 32;
+static_assert(kFwdThreads == kBwdThreads, "stage_rows strides by the backward's block");
+constexpr int kFwdMaxSplits = 16;         // key ranges a query tile is split into to fill the card
+constexpr int kFwdTargetBlocks = 1320;    // blocks the split aims at: ten for each of 132 SMs
+constexpr int kFwdMaxRangeKeys = 65536;   // the most keys a range holds (accuracy)
+
+// Tiles of the forward, for C and D zero-padded to P (16, 32, 64, 128 or 256).
+template <int P>
+struct Fwd {
+  // Query rows a thread (8 at P = 32 took 232 registers, two blocks an SM,
+  // and was no faster), 16 a warp, 64 a block.
+  static constexpr int kRPT = 4;
+  static constexpr int kRows = kFwdWarps * 4 * kRPT;
+  static constexpr int kStride = P + 4;  // floats a row of q, k, v in shared memory
+  static constexpr int kKeys = P <= 64 ? 64 : 4096 / P;  // keys a chunk: 64, 32 or 16
+  static constexpr int kKPT = kKeys / 8;                // keys of a chunk a thread scores
+  static constexpr int kCols = P < 128 ? P : 128;        // output columns a block
+  static constexpr int kChunks = P / kCols;              // blocks a tile, one a column chunk
+  static constexpr int kCPT = kCols / 8;                 // output columns a thread
+  // A thread's columns come in runs of kRun, one run in each 8 kRun columns,
+  // so that the 8 lanes of a row read one contiguous span of v at a time.
+  static constexpr int kRun = kCPT < 4 ? kCPT : 4;
+  static __device__ __forceinline__ int col(int h, int cc) {
+    return cc / kRun * 8 * kRun + h * kRun + cc % kRun;
+  }
+  static constexpr int kQFloats = kRows * kStride;
+  static constexpr int kStageFloats = 2 * kKeys * kStride;   // a chunk of k, then of v
+  // p goes to P V in rounds of kPKeys keys, through a buffer of each warp's
+  // p: a key's 4 kRPT rows, padded to kPStride floats so that the 8 lanes of
+  // a row write 8 banks apart.
+  static constexpr int kPKeys = kKeys < 32 ? kKeys : 32;
+  static constexpr int kPStride = 4 * kRPT + 4;
+  static constexpr int kPFloats = kFwdWarps * kPKeys * kPStride;
+  static constexpr size_t kSmem = (size_t)(kQFloats + 2 * kStageFloats + kPFloats) * sizeof(float);
+};
+
+#ifdef FLASH_FWD_PLAN_SWEEP
+// Built with -DFLASH_FWD_PLAN_SWEEP (scripts/torch_kernel_turns.py --plans):
+// every forward splits its tiles' keys into this many ranges (0: the plan's).
+int g_fwd_force_splits = 0;
+#endif
+
+// How the forward splits a query tile's keys: into `splits` ranges of
+// split_keys keys (a whole number of chunks), as many as bring B * ceil(M /
+// kRows) * kChunks tiles times the ranges near kFwdTargetBlocks, at most
+// kFwdMaxSplits; and a range never holds more than kFwdMaxRangeKeys keys,
+// whatever the card's fill: a thread sums a range's products in order, and
+// their rounding grows with their count.
+template <int P>
+void fwd_split(int b, int m, int n, int& splits, int& split_keys) {
+  using T = Fwd<P>;
+  static_assert(kFwdMaxRangeKeys % T::kKeys == 0, "a range holds whole chunks");
+  const int chunks = (n + T::kKeys - 1) / T::kKeys;
+  const int tiles = b * ((m + T::kRows - 1) / T::kRows) * T::kChunks;
+  int want = (kFwdTargetBlocks + tiles - 1) / tiles;
+  want = want < kFwdMaxSplits ? want : kFwdMaxSplits;
+  int split_chunks = (chunks + want - 1) / want;
+  split_chunks = split_chunks < kFwdMaxRangeKeys / T::kKeys ? split_chunks
+                                                             : kFwdMaxRangeKeys / T::kKeys;
+#ifdef FLASH_FWD_PLAN_SWEEP
+  if (g_fwd_force_splits > 0) {
+    want = g_fwd_force_splits < chunks ? g_fwd_force_splits : chunks;
+    split_chunks = (chunks + want - 1) / want;
+  }
+#endif
+  splits = (chunks + split_chunks - 1) / split_chunks;
+  split_keys = split_chunks * T::kKeys;
+}
+
+// One block of the forward: batch element blockIdx.y, query tile, key range
+// and column chunk from blockIdx.x. Thread (warp w, lane 8 g + h) scores rows
+// 4 kRPT w + g + 4 i (i < kRPT) against keys h + 8 j (j < kKPT) of each chunk, and
+// accumulates those rows' outputs in its kCPT columns (Fwd::col) of its
+// column chunk. A row's max and sum go by xor shuffles over its 8 lanes; its
+// p go through the warp's buffer in shared memory to the P V product. With
+// one range the block writes o and lse; with more, its range's (max, sum,
+// unnormalised o) go to `part`, which flash_fwd_merge_kernel merges.
+template <int P>
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 float* __restrict__ part, int m, int n, int c, int d, float scale, int splits,
+                 int split_keys) {
+  using T = Fwd<P>;
+  constexpr int S = T::kStride, KPT = T::kKPT, CPT = T::kCPT, BN = T::kKeys, RPT = T::kRPT;
+  constexpr int PS = T::kPStride;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* sq = smem;
+  float* stages = sq + T::kQFloats;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 3, h = lane & 7;
+  const int b = blockIdx.y;
+  const int chunk = blockIdx.x % T::kChunks;
+  const int split = blockIdx.x / T::kChunks % splits;
+  const int row0 = blockIdx.x / T::kChunks / splits * T::kRows;
+  const int key0 = split * split_keys, key1 = min(n, key0 + split_keys);
+  const int col0 = chunk * T::kCols;  // the column chunk's first column
+  const float* K = k + (size_t)b * n * c;
+  const float* V = v + (size_t)b * n * d;
+
+  // Zero q and the stages (columns past C or D, rows past M, and rows past
+  // a ragged last chunk add exactly 0), then copy this tile's q.
+  for (int i = threadIdx.x; i < T::kQFloats + 2 * T::kStageFloats; i += kFwdThreads) smem[i] = 0.0f;
+  __syncthreads();
+  stage_rows(sq, q + (size_t)b * m * c, row0, min(T::kRows, m - row0), c, S);
+  cp_async_commit();
+  const int steps = (key1 - key0 + BN - 1) / BN;
+  auto issue = [&](int step) {
+    float* st = stages + (step & 1) * T::kStageFloats;
+    const int r0 = key0 + step * BN;
+    const int cnt = min(BN, key1 - r0);
+    stage_rows(st, K, r0, cnt, c, S);
+    stage_rows(st + BN * S, V, r0, cnt, d, S);
+    cp_async_commit();
+  };
+
+  float acc[RPT][CPT], mx[RPT], l[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    mx[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.0f;
+  }
+  const float* qw = sq + (warp * 4 * RPT + g) * S;  // row i at qw + 4 i S
+  float* pw = stages + 2 * T::kStageFloats + warp * T::kPKeys * PS;  // [key][4 RPT rows]
+
+  issue(0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      issue(step + 1);  // into the other stage, which the last step has released
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sk = stages + (step & 1) * T::kStageFloats;
+    const float* sv = sk + BN * S;
+
+    // s = q k^T, RPT rows x KPT keys: each shared float4 feeds 4 RPT or
+    // 4 KPT FMAs.
+    float s[RPT][KPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.0f;
+#pragma unroll
+    for (int c4 = 0; c4 < P; c4 += 4) {
+      float4 qa[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) qa[i] = *reinterpret_cast<const float4*>(qw + 4 * i * S + c4);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float4 kb = *reinterpret_cast<const float4*>(sk + (h + 8 * j) * S + c4);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          s[i][j] = fmaf(qa[i].x, kb.x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kb.y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kb.z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kb.w, s[i][j]);
+        }
+      }
+    }
+
+    // Online softmax: keys past the range score -inf, add exactly 0 and
+    // leave the max as it was; each p is exponentiated once.
+    const int kbase = key0 + step * BN + h;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float cmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        s[i][j] = kbase + 8 * j < key1 ? s[i][j] * scale : -INFINITY;
+        cmax = fmaxf(cmax, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+      const float mnew = fmaxf(mx[i], cmax);  // finite: the chunk holds a key
+      const float alpha = expf(mx[i] - mnew);  // 0 at the first chunk (mx = -inf)
+      mx[i] = mnew;
+      l[i] *= alpha;
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) acc[i][cc] *= alpha;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        s[i][j] = expf(s[i][j] - mnew);
+        l[i] += s[i][j];
+      }
+    }
+    // acc += p v over the chunk's keys, in key order, kPKeys at a time.
+    constexpr int kJ = T::kPKeys / 8;  // a round's keys a thread scored
+#pragma unroll
+    for (int round = 0; round < BN / T::kPKeys; ++round) {
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int i = 0; i < RPT; i += 4)
+          *reinterpret_cast<float4*>(pw + (h + 8 * j) * PS + RPT * g + i) =
+              make_float4(s[i][round * kJ + j], s[i + 1][round * kJ + j],
+                          s[i + 2][round * kJ + j], s[i + 3][round * kJ + j]);
+      __syncwarp();
+#pragma unroll 8
+      for (int kk = 0; kk < T::kPKeys; ++kk) {
+        float pr[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; i += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(pw + kk * PS + RPT * g + i);
+          pr[i] = x.x;
+          pr[i + 1] = x.y;
+          pr[i + 2] = x.z;
+          pr[i + 3] = x.w;
+        }
+        const float* vr = sv + (round * T::kPKeys + kk) * S + col0;
+        float vv[CPT];
+#pragma unroll
+        for (int cc = 0; cc < CPT; cc += T::kRun) {
+          if constexpr (T::kRun == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(vr + T::col(h, cc));
+            vv[cc] = x.x;
+            vv[cc + 1] = x.y;
+            vv[cc + 2] = x.z;
+            vv[cc + 3] = x.w;
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(vr + T::col(h, cc));
+            vv[cc] = x.x;
+            vv[cc + 1] = x.y;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = fmaf(pr[i], vv[cc], acc[i][cc]);
+      }
+      __syncwarp();  // the round's p are read; the next round may write them
+    }
+    __syncthreads();  // this stage is read; the next step's copy may refill it
+  }
+
+  // A row's sum over its 8 lanes (a butterfly: every lane ends with the same
+  // sum); then o and lse, or this range's part.
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  // A part: (splits, B, M, D) unnormalised o, then (splits, B, M, 2) max and sum.
+  const size_t rows = (size_t)gridDim.y * m;
+  const bool split_up = splits > 1;
+  float* out = split_up ? part + split * rows * d : o;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = row0 + warp * 4 * RPT + g + 4 * i;
+    if (row >= m) continue;
+    const size_t r = (size_t)b * m + row;
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) {
+      const int col = col0 + T::col(h, cc);
+      if (col < d) out[r * d + col] = split_up ? acc[i][cc] : acc[i][cc] / l[i];
+    }
+    if (h == 0 && chunk == 0) {
+      if (split_up) {
+        float* ml = part + (size_t)splits * rows * d + 2 * (split * rows + r);
+        ml[0] = mx[i];
+        ml[1] = l[i];
+      } else {
+        lse[r] = mx[i] + logf(l[i]);
+      }
+    }
+  }
+}
+
+// o and lse from the ranges' parts, merged in range order: one thread an
+// element of o (the row's first also writes its lse).
+__global__ void flash_fwd_merge_kernel(const float* __restrict__ part, float* __restrict__ o,
+                                       float* __restrict__ lse, long long rows, int d,
+                                       int splits) {
+  const float* ml = part + (size_t)splits * rows * d;
+  const long long count = rows * d, stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < count; e += stride) {
+    const long long r = e / d;
+    float top = -INFINITY;
+    for (int sp = 0; sp < splits; ++sp) top = fmaxf(top, ml[2 * (sp * rows + r)]);
+    float sum = 0.0f, num = 0.0f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float f = expf(ml[2 * (sp * rows + r)] - top);
+      sum = fmaf(ml[2 * (sp * rows + r) + 1], f, sum);
+      num = fmaf(part[sp * count + e], f, num);
+    }
+    o[e] = num / sum;
+    if (e - r * d == 0) lse[r] = top + logf(sum);
   }
 }
 
@@ -584,27 +747,30 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-size_t fwd_smem(int p, int chunk) {
-  const size_t stage = (size_t)2 * chunk * p * sizeof(float);
-  const size_t merge = (size_t)kWarps * (kPerLane + 2) * 32 * sizeof(float);
-  return stage > merge ? stage : merge;
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int G>
-int fwd(const float* q, const float* k, const float* v, float* o, float* lse, int b, int m,
-        int n, int c, int d, float scale, cudaStream_t stream) {
-  using T = Tile<G>;
-  const size_t smem = fwd_smem(T::P, T::kChunk);
-  cudaError_t err = allow_smem(flash_fwd_kernel<G>, smem);
+template <int P>
+int fwd(const float* q, const float* k, const float* v, float* o, float* lse, float* part, int b,
+        int m, int n, int c, int d, float scale, cudaStream_t stream) {
+  using T = Fwd<P>;
+  int splits, split_keys;
+  fwd_split<P>(b, m, n, splits, split_keys);
+  if (splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_kernel<P>, T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((m + T::kRows - 1) / T::kRows, b);
-  flash_fwd_kernel<G><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, m, n, c, d, scale);
+  const dim3 grid((m + T::kRows - 1) / T::kRows * splits * T::kChunks, b);
+  flash_fwd_kernel<P><<<grid, kFwdThreads, T::kSmem, stream>>>(q, k, v, o, lse, part, m, n, c, d,
+                                                               scale, splits, split_keys);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  // Same stream: the parts are written before they are merged.
+  const long long count = (long long)b * m * d, blocks = (count + 255) / 256;
+  flash_fwd_merge_kernel<<<(int)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, stream>>>(
+      part, o, lse, (long long)b * m, d, splits);
   return (int)cudaGetLastError();
 }
 
@@ -657,15 +823,7 @@ int bwd(const float* q, const float* k, const float* v, const float* o, const fl
   return (int)cudaGetLastError();
 }
 
-int lanes_for(int c, int d) {
-  const int w = c > d ? c : d;
-  if (w < 1 || w > kMaxWidth) return 0;
-  int g = 1;
-  while (kPerLane * g < w) g *= 2;
-  return g;
-}
-
-// The backward's padded width: the next power of two >= C, D and 16.
+// The padded width of both directions: the next power of two >= C, D and 16.
 int padded_width(int c, int d) {
   const int w = c > d ? c : d;
   if (w < 1 || w > kMaxWidth) return 0;
@@ -680,17 +838,37 @@ extern "C" {
 
 int pasnl_flash_max_width() { return kMaxWidth; }
 
-int pasnl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
-                    int m, int n, int c, int d, float scale, void* stream) {
+// Floats of scratch the forward needs for its key ranges' parts, splits *
+// B * M * (D + 2) where a tile's keys are split (0: none, or a width past
+// 256).
+long long pasnl_flash_fwd_scratch(int b, int m, int n, int c, int d) {
+  int splits = 0, split_keys = 0;
+  switch (padded_width(c, d)) {
+    case 16: fwd_split<16>(b, m, n, splits, split_keys); break;
+    case 32: fwd_split<32>(b, m, n, splits, split_keys); break;
+    case 64: fwd_split<64>(b, m, n, splits, split_keys); break;
+    case 128: fwd_split<128>(b, m, n, splits, split_keys); break;
+    case 256: fwd_split<256>(b, m, n, splits, split_keys); break;
+    default: break;
+  }
+  return splits > 1 ? (long long)splits * b * m * (d + 2) : 0;
+}
+
+#ifdef FLASH_FWD_PLAN_SWEEP
+void pasnl_flash_fwd_force_splits(int splits) { g_fwd_force_splits = splits; }
+#endif
+
+int pasnl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* part,
+                    int b, int m, int n, int c, int d, float scale, void* stream) {
   const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
-  float *of = (float*)o, *lf = (float*)lse;
+  float *of = (float*)o, *lf = (float*)lse, *pf = (float*)part;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes_for(c, d)) {
-    case 1: return fwd<1>(qf, kf, vf, of, lf, b, m, n, c, d, scale, s);
-    case 2: return fwd<2>(qf, kf, vf, of, lf, b, m, n, c, d, scale, s);
-    case 4: return fwd<4>(qf, kf, vf, of, lf, b, m, n, c, d, scale, s);
-    case 8: return fwd<8>(qf, kf, vf, of, lf, b, m, n, c, d, scale, s);
-    case 16: return fwd<16>(qf, kf, vf, of, lf, b, m, n, c, d, scale, s);
+  switch (padded_width(c, d)) {
+    case 16: return fwd<16>(qf, kf, vf, of, lf, pf, b, m, n, c, d, scale, s);
+    case 32: return fwd<32>(qf, kf, vf, of, lf, pf, b, m, n, c, d, scale, s);
+    case 64: return fwd<64>(qf, kf, vf, of, lf, pf, b, m, n, c, d, scale, s);
+    case 128: return fwd<128>(qf, kf, vf, of, lf, pf, b, m, n, c, d, scale, s);
+    case 256: return fwd<256>(qf, kf, vf, of, lf, pf, b, m, n, c, d, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

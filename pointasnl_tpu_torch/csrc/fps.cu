@@ -15,13 +15,26 @@
 // and, where a cloud spans several blocks, an exchange of the blocks'
 // candidates -- times npoint.
 //
-// What the design does about it, three designs routed by N:
+// What the design does about it, three designs routed by N (and, at the
+// largest block-design N, by the batch: ops/cuda/fps.py:design):
 //
 // - N <= 10240 (fps_kernel): one block per cloud, so the chain never leaves
-//   the SM. The cloud (as x, y, z rows) and the running minimum distance live
-//   in shared memory for the whole run; device memory is read once and the
-//   indices are written once. The argmax is a warp-shuffle reduction over
-//   (value, -index), then one warp reduces the per-warp winners.
+//   the SM, and the cloud never leaves the registers: each thread holds a
+//   compile-time number of consecutive points (PPT), their coordinates and
+//   running minima, so device memory is read once; shared memory keeps only
+//   a copy of the cloud for the picks' coordinates. A pick's time is its
+//   latency: a thread reduces its rows as a tree, and a warp's argmax is one
+//   redux.sync and a ballot (a lower lane holds lower indices). Up to 256
+//   points (the plan, kBlockPlanN / kBlockPlanPPT) one warp takes the cloud,
+//   with no barrier at all. Past that, 5 to 20 warps: each warp's winner
+//   goes to a shared slot (double-buffered by the pick's parity), and after
+//   the one block barrier of the pick every warp reduces the slots itself,
+//   so no second barrier follows. At 10240 points a pick is bound by the
+//   update pass on one SM, so a batch of clouds of 8192 to 10240 points
+//   that the card runs in one wave of clusters (pasnl_fps_cluster_slots: 7
+//   on the H100) takes the cluster design below, 16 SMs a cloud: 1.025
+//   against 1.215 ms at 10240 -> 1280 (they tie at 8192; at B8 the clusters
+//   need two waves, 2.05 ms).
 // - 10240 < N <= 278528 (fps_cluster_kernel, whole scenes): one cloud is
 //   spread over a thread-block cluster of 16 blocks on 16 SMs, past the
 //   portable cluster size of 8, launched with cudaLaunchKernelEx; the library
@@ -156,96 +169,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
 constexpr float kFpsInf = 1e38f;
-constexpr int kBlockMaxN = 10240;  // four float rows of N in 227 KB of shared memory
+constexpr int kBlockMaxN = 10240;  // its copy of the cloud: 160 KB of shared memory
 // The cluster design: 16 blocks (past the portable 8: the card states
 // whether it fits) of 1024 threads, up to 17 points a thread.
 constexpr int kCluster = 16;
 constexpr int kClusterThreads = 1024;
 constexpr int kPointsPerThread = 17;
 constexpr int kClusterMaxN = kCluster * kClusterThreads * kPointsPerThread;  // 278528
-
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__global__ void fps_kernel(const float* __restrict__ xyz, int32_t* __restrict__ out,
-                           int n, int npoint) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  float* md = sz + n;
-  __shared__ float warp_v[32];
-  __shared__ int warp_i[32];
-  __shared__ int pick;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  const float* p = xyz + (size_t)b * n * 3;
-  int32_t* o = out + (size_t)b * npoint;
-
-  for (int i = tid; i < n; i += blockDim.x) {
-    sx[i] = p[3 * i + 0];
-    sy[i] = p[3 * i + 1];
-    sz[i] = p[3 * i + 2];
-    md[i] = kFpsInf;
-  }
-  if (tid == 0) {
-    o[0] = 0;
-    pick = 0;
-  }
-  __syncthreads();
-
-  for (int j = 1; j < npoint; ++j) {
-    const int last = pick;
-    const float px = sx[last], py = sy[last], pz = sz[last];
-    float best_v = -1.0f;
-    int best_i = n;
-    for (int i = tid; i < n; i += blockDim.x) {
-      const float dx = sx[i] - px, dy = sy[i] - py, dz = sz[i] - pz;
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      const float m = fminf(md[i], d);
-      md[i] = m;
-      if (m > best_v) {  // strict: the lowest of this thread's indices wins ties
-        best_v = m;
-        best_i = i;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best_v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
-      argmax_merge(best_v, best_i, ov, oi);
-    }
-    if (lane == 0) {
-      warp_v[warp] = best_v;
-      warp_i[warp] = best_i;
-    }
-    __syncthreads();  // also orders every read of `pick` before its rewrite
-    if (warp == 0) {
-      float v = lane < nwarps ? warp_v[lane] : -1.0f;
-      int i = lane < nwarps ? warp_i[lane] : n;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-        argmax_merge(v, i, ov, oi);
-      }
-      if (lane == 0) {
-        pick = i;
-        o[j] = i;
-      }
-    }
-    __syncthreads();
-  }
-}
 
 __device__ __forceinline__ float sqdist(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
@@ -338,6 +269,134 @@ __device__ __forceinline__ void warp_argmax(uint32_t& v, uint32_t& i) {
   const uint32_t vmax = __reduce_max_sync(0xffffffffu, v);
   i = __reduce_min_sync(0xffffffffu, v == vmax ? i : kNoIndex);
   v = vmax;
+}
+
+// The block design's plan: a cloud of N points takes the first entry whose
+// largest N holds it, that many points a thread (PPT), and the fewest warps
+// that hold N at that PPT. Chosen by timing every variant at the paths'
+// shapes (scripts/torch_kernel_turns.py --plans, PERF.md): one warp up to
+// 256 points; past that 1, 4 or 16 points a thread, which puts 5 to 20 warps
+// on a cloud (a single warp issues from one of the SM's four schedulers).
+// The plan was the fastest variant at 7 of the 8 path shapes, and within
+// 2.4 % of it at the eighth (B8 512 -> 128, where 2 points a thread did
+// better).
+// The wrapper mirrors the table (ops/cuda/fps.py:BLOCK_PLAN) and checks it
+// against pasnl_fps_block_ppt and pasnl_fps_block_warps.
+constexpr int kBlockPlanN[] = {32, 64, 128, 256, 512, 2048, kBlockMaxN};
+constexpr int kBlockPlanPPT[] = {1, 2, 4, 8, 1, 4, 16};
+
+// Threads a block of the PPT variant may have: as many warps as hold
+// kBlockMaxN points at that PPT, at most 32. Its registers follow from it.
+template <int PPT>
+struct BlockThreads {
+  static constexpr int kWarps = (kBlockMaxN + 32 * PPT - 1) / (32 * PPT);
+  static constexpr int kMax = 32 * (kWarps < 32 ? kWarps : 32);
+};
+
+// A thread's share of a cloud in the block design, in registers: the PPT
+// consecutive points tid * PPT + r and their running minima md. A row past N
+// holds md = -1, which no pick lowers and no argmax takes, so the rows need
+// no bounds checks.
+template <int PPT>
+struct RegisterCloud {
+  float x[PPT], y[PPT], z[PPT], md[PPT];
+
+  // Loads the thread's points, and copies them to `pts` for the picks'
+  // coordinates.
+  __device__ __forceinline__ void init(const float* p, float4* pts, int n, int tid) {
+#pragma unroll
+    for (int r = 0; r < PPT; ++r) {
+      const int l = tid * PPT + r;
+      const bool live = l < n;
+      x[r] = live ? p[3 * l + 0] : 0.0f;
+      y[r] = live ? p[3 * l + 1] : 0.0f;
+      z[r] = live ? p[3 * l + 2] : 0.0f;
+      md[r] = live ? kFpsInf : -1.0f;
+      if (live) pts[l] = make_float4(x[r], y[r], z[r], 0.0f);
+    }
+  }
+
+  // One pick at (px, py, pz): lowers every md[r], and returns the largest as
+  // distance bits v (0 if the thread holds no point) and its lowest row. The
+  // rows reduce as a tree, so the latency is log2(PPT) merges, not PPT.
+  __device__ __forceinline__ void update(float px, float py, float pz, uint32_t& v, int& row) {
+    float tv[PPT];
+    int tr[PPT];
+#pragma unroll
+    for (int r = 0; r < PPT; ++r) {
+      md[r] = fminf(md[r], sqdist(x[r] - px, y[r] - py, z[r] - pz));
+      tv[r] = md[r];
+      tr[r] = r;
+    }
+#pragma unroll
+    for (int w = 1; w < PPT; w *= 2)
+#pragma unroll
+      for (int a = 0; a + w < PPT; a += 2 * w)
+        if (tv[a + w] > tv[a]) {  // strict: the lower rows win ties
+          tv[a] = tv[a + w];
+          tr[a] = tr[a + w];
+        }
+    v = tv[0] < 0.0f ? 0u : __float_as_uint(tv[0]);
+    row = tr[0];
+  }
+};
+
+// The block design: one block a cloud, PPT consecutive points a thread in
+// registers, so a lower lane, and a lower warp, holds lower indices. A warp's
+// argmax is then one redux.sync of the distance bits and a ballot: the lowest
+// lane that holds the largest holds the lowest index among its ties (a lane
+// with no point offers 0 and, lying above every point, loses to a point at
+// 0). With one warp, the winning lane's index is shuffled to the others.
+// With more, each warp's winning lane writes (distance bits, index) to the
+// warp's slot of the pick's parity, and after one block barrier every warp
+// reduces the slots the same way: a warp writes the slots of pick j + 2 only
+// after the barrier of pick j + 1, which every warp passes only after reading
+// those of pick j. The pick's point comes from the block's copy of the cloud
+// in shared memory, one broadcast load.
+template <int PPT>
+__global__ void __launch_bounds__(BlockThreads<PPT>::kMax)
+fps_kernel(const float* __restrict__ xyz, int32_t* __restrict__ out, int n, int npoint) {
+  extern __shared__ float4 pts[];  // the cloud, for the picks' coordinates
+  __shared__ uint32_t slot_v[2][32], slot_i[2][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const float* p = xyz + (size_t)blockIdx.x * n * 3;
+  int32_t* o = out + (size_t)blockIdx.x * npoint;
+
+  RegisterCloud<PPT> cloud;
+  cloud.init(p, pts, n, tid);
+  float px = p[0], py = p[1], pz = p[2];
+  if (tid == 0) o[0] = 0;
+  __syncthreads();
+  for (int j = 1; j < npoint; ++j) {
+    uint32_t v;
+    int row;
+    cloud.update(px, py, pz, v, row);
+    const uint32_t own = (uint32_t)(tid * PPT + row);
+    const uint32_t vmax = __reduce_max_sync(0xffffffffu, v);
+    const int src = __ffs(__ballot_sync(0xffffffffu, v == vmax)) - 1;
+    uint32_t i;
+    if (warps == 1) {
+      i = __shfl_sync(0xffffffffu, own, src);
+    } else {
+      const int par = j & 1;
+      if (lane == src) {
+        slot_v[par][warp] = vmax;
+        slot_i[par][warp] = own;
+      }
+      __syncthreads();
+      const bool live = lane < warps;
+      const uint32_t sv = live ? slot_v[par][lane] : 0u;
+      const uint32_t si = live ? slot_i[par][lane] : 0u;
+      const uint32_t bmax = __reduce_max_sync(0xffffffffu, sv);
+      i = __shfl_sync(0xffffffffu, si, __ffs(__ballot_sync(0xffffffffu, live && sv == bmax)) - 1);
+    }
+    const float4 q = pts[i];
+    px = q.x;
+    py = q.y;
+    pz = q.z;
+    if (tid == 0) o[j] = (int32_t)i;
+  }
 }
 
 // Per-warp winners in shared memory, reduced by warp 0 to the block's.
@@ -778,6 +837,20 @@ cudaError_t cluster_fits() {
   return clusters >= 1 ? cudaSuccess : cudaErrorNotSupported;
 }
 
+// Clusters the card runs at once at N = kBlockMaxN (a block holds 640
+// points: the smallest variant), or a negative CUDA error.
+int cluster_slots() {
+  constexpr int P = 1;
+  const size_t smem = (size_t)3 * (kBlockMaxN / kCluster) * sizeof(float);
+  cudaError_t err = cluster_attributes<P>(smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<P>(1, smem, 0, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fps_cluster_kernel<P>, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
 template <int P, int... Rest>
 cudaError_t launch_cluster_variant(Variants<P, Rest...>, int need, const float* xyz,
                                    int32_t* out, int b, int n, int npoint, cudaStream_t stream) {
@@ -787,6 +860,43 @@ cudaError_t launch_cluster_variant(Variants<P, Rest...>, int need, const float* 
   }
   if (need > P) return cudaErrorInvalidValue;
   return launch_cluster<P>(xyz, out, b, n, npoint, stream);
+}
+
+// The block design's plan for n points: (0, 0) past kBlockMaxN.
+void block_plan(int n, int& ppt, int& warps) {
+  ppt = warps = 0;
+  if (n < 1) return;
+  for (int e = 0; e < (int)(sizeof(kBlockPlanN) / sizeof(int)); ++e) {
+    if (n <= kBlockPlanN[e]) {
+      ppt = kBlockPlanPPT[e];
+      warps = (n + 32 * ppt - 1) / (32 * ppt);
+      return;
+    }
+  }
+}
+
+using BlockVariants = Variants<1, 2, 4, 8, 16>;
+
+template <int P, int... Rest>
+cudaError_t launch_block_variant(Variants<P, Rest...>, int ppt, int warps, const float* xyz,
+                                 int32_t* out, int b, int n, int npoint, cudaStream_t stream) {
+  if (ppt != P) {
+    if constexpr (sizeof...(Rest) > 0)
+      return launch_block_variant(Variants<Rest...>{}, ppt, warps, xyz, out, b, n, npoint,
+                                  stream);
+    return cudaErrorInvalidValue;
+  }
+  if (warps * 32 > BlockThreads<P>::kMax) return cudaErrorInvalidValue;
+  // The copy of the cloud, which with the kernel's 512 bytes of slots may
+  // pass the 48 KB a launch gets without asking.
+  const size_t smem = (size_t)n * sizeof(float4);
+  if (smem + 2 * 2 * 32 * sizeof(uint32_t) > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fps_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  fps_kernel<P><<<b, warps * 32, smem, stream>>>(xyz, out, n, npoint);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -843,20 +953,48 @@ int pasnl_fps_cluster(const void* xyz, void* out, int b, int n, int npoint, void
                                      b, n, npoint, (cudaStream_t)stream);
 }
 
-int pasnl_fps(const void* xyz, void* out, int b, int n, int npoint, void* stream) {
-  if (n < 1 || n > kBlockMaxN || npoint < 1) return (int)cudaErrorInvalidValue;
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem = (size_t)4 * n * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  fps_kernel<<<b, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)xyz, (int32_t*)out, n, npoint);
-  return (int)cudaGetLastError();
+// The block design's plan for a cloud of n points (0 past kBlockMaxN).
+int pasnl_fps_block_ppt(int n) {
+  int ppt = 0, warps = 0;
+  block_plan(n, ppt, warps);
+  return ppt;
 }
+int pasnl_fps_block_warps(int n) {
+  int ppt = 0, warps = 0;
+  block_plan(n, ppt, warps);
+  return warps;
+}
+
+// The block design, at its plan for n.
+int pasnl_fps(const void* xyz, void* out, int b, int n, int npoint, void* stream) {
+  int ppt = 0, warps = 0;
+  block_plan(n, ppt, warps);
+  if (ppt == 0 || npoint < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_block_variant(BlockVariants{}, ppt, warps, (const float*)xyz,
+                                   (int32_t*)out, b, n, npoint, (cudaStream_t)stream);
+}
+
+// Clusters of the cluster design the card runs at once at a block-design
+// N: a batch of clouds up to this many takes one wave of it (0 where the
+// card runs none, or a negative CUDA error).
+int pasnl_fps_cluster_slots() {
+  const int clusters = cluster_slots();
+  if (clusters < 0) cudaGetLastError();  // not sticky: cleared, as in pasnl_fps_cluster_max_n
+  return clusters;
+}
+
+#ifdef FPS_PLAN_SWEEP
+// Built with -DFPS_PLAN_SWEEP (scripts/torch_kernel_turns.py --plans): the
+// block design at any plan, ppt one of the variants and warps * 32 * ppt >= n,
+// to time the plans the library does not take.
+int pasnl_fps_block_planned(const void* xyz, void* out, int b, int n, int npoint, int ppt,
+                            int warps, void* stream) {
+  if (n < 1 || n > kBlockMaxN || npoint < 1 || warps < 1 || (long long)warps * 32 * ppt < n)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_block_variant(BlockVariants{}, ppt, warps, (const float*)xyz,
+                                   (int32_t*)out, b, n, npoint, (cudaStream_t)stream);
+}
+#endif
 
 const char* pasnl_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -65,6 +65,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("pasnl_fps", "pasnl_fps_cluster"):
         getattr(lib, name).argtypes = [p, p, i, i, i, p]
         getattr(lib, name).restype = i
+    for name in ("pasnl_fps_block_ppt", "pasnl_fps_block_warps"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
     lib.pasnl_fps_grid.argtypes = [p, p, p, i, i, i, p]
     lib.pasnl_fps_grid.restype = i
     lib.pasnl_knn.argtypes = [p, p, p, p, i, i, i, i, i, p]
@@ -75,19 +78,20 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pasnl_knn_spatial.restype = i
     lib.pasnl_knn_streaming.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pasnl_knn_streaming.restype = i
-    lib.pasnl_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.pasnl_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
     lib.pasnl_flash_fwd.restype = i
     lib.pasnl_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
     lib.pasnl_flash_bwd.restype = i
-    lib.pasnl_flash_bwd_scratch.argtypes = [i, i, i, i, i]
-    lib.pasnl_flash_bwd_scratch.restype = ctypes.c_longlong
+    for name in ("pasnl_flash_fwd_scratch", "pasnl_flash_bwd_scratch"):
+        getattr(lib, name).argtypes = [i, i, i, i, i]
+        getattr(lib, name).restype = ctypes.c_longlong
     lib.pasnl_gather_backward.argtypes = [p, p, p, p, ctypes.c_longlong, i, p]
     lib.pasnl_gather_backward.restype = i
-    for name in ("pasnl_fps_max_n", "pasnl_fps_cluster_max_n", "pasnl_fps_grid_max_n",
-                 "pasnl_fps_grid_blocks", "pasnl_fps_grid_scratch_bytes", "pasnl_knn_max_n",
-                 "pasnl_knn_max_k", "pasnl_knn_streaming_max_n", "pasnl_knn_streaming_max_k",
-                 "pasnl_ball_query_max_n", "pasnl_ball_query_max_nsample",
-                 "pasnl_knn_spatial_tile", "pasnl_flash_max_width"):
+    for name in ("pasnl_fps_max_n", "pasnl_fps_cluster_max_n", "pasnl_fps_cluster_slots",
+                 "pasnl_fps_grid_max_n", "pasnl_fps_grid_blocks", "pasnl_fps_grid_scratch_bytes",
+                 "pasnl_knn_max_n", "pasnl_knn_max_k", "pasnl_knn_streaming_max_n",
+                 "pasnl_knn_streaming_max_k", "pasnl_ball_query_max_n",
+                 "pasnl_ball_query_max_nsample", "pasnl_knn_spatial_tile", "pasnl_flash_max_width"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.pasnl_error_string.argtypes = [i]

@@ -3,10 +3,12 @@
 Replaces ``pointasnl_tpu/ops/pallas/flash_attention.py`` (``_flash_fwd_kernel``
 and ``_flash_bwd_kernel``). The plain versions it is held against are
 ``ops.flash_attention.flash_forward_reference`` and
-``flash_backward_reference``. One backward call launches delta's kernel,
-then the backward kernel (dQ, dK and dV) and, where a query tile's keys are
-split, the fixed-order sum of the partial dQ; it counts as one launch of the
-backward.
+``flash_backward_reference``. One forward call launches the forward kernel
+and, where the library splits a query tile's keys into ranges, the kernel
+that merges the ranges in order; it counts as one launch of the
+forward. One backward call launches delta's kernel, then the backward kernel
+(dQ, dK and dV) and, where a query tile's keys are split, the fixed-order sum
+of the partial dQ; it counts as one launch of the backward.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from pointasnl_tpu_torch.ops.cuda import _build
 
-fwd_launches = 0  # forward kernel launches made by this process
+fwd_launches = 0  # forward launches made by this process (its one or two kernels together)
 bwd_launches = 0  # backward launches (its two or three kernels together)
 
 
@@ -55,10 +57,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or M == 0:
         return o, lse
     lib = _build.library()
+    scratch = lib.pasnl_flash_fwd_scratch(B, M, N, C, D)  # the key ranges' parts, merged in order
+    part = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.pasnl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                         lse.data_ptr(), B, M, N, C, D, scale, stream),
+                                         lse.data_ptr(), part.data_ptr() if scratch else None,
+                                         B, M, N, C, D, scale, stream),
                      "flash attention forward kernel")
     fwd_launches += 1
     return o, lse

@@ -1,15 +1,15 @@
 """The port's seg train step, timed for two source trees in turns, on a card.
 
 Each tree is a checkout of the repo (for example the parent commit unpacked
-with ``git archive`` beside this one). Turns run in the order A, B, B, A,
-each in a process of its own that imports ``pointasnl_tpu_torch`` from its
-tree (building that tree's kernels there once), makes
-``PointASNLSemSegRes(21)`` from one seed, takes WARMUP steps at B4x10240
-with the ScanNet recipe's optimizer and losses, and times STEPS more, one
-by one, by CUDA events. Prints each turn's p50 and p90, each tree's p50 over
+with ``git archive`` beside this one). Turns run in the order A, B, B, A
+(``--rounds`` times over), each in a process of its own that imports
+``pointasnl_tpu_torch`` from its tree (building that tree's kernels there
+once), makes ``PointASNLSemSegRes(21)`` from one seed, takes WARMUP steps
+at B4x10240 with the ScanNet recipe's optimizer and losses, and times STEPS
+more, one by one, by CUDA events. Prints each turn's p50 and p90, each tree's p50 over
 its turns, and one JSON line.
 
-    python3 scripts/torch_step_turns.py TREE_A TREE_B [--flash]
+    python3 scripts/torch_step_turns.py TREE_A TREE_B [--flash] [--rounds R]
 """
 
 from __future__ import annotations
@@ -81,6 +81,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--flash", action="store_true", help="the step under nl_use_flash")
+    ap.add_argument("--rounds", type=int, default=1, help="A, B, B, A this many times")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -93,7 +94,7 @@ def main() -> int:
     a, b = (os.path.abspath(t) for t in args.trees)
     label = "flash seg" if args.flash else "seg"
     runs = {a: [], b: []}
-    for turn, root in enumerate((a, b, b, a)):
+    for turn, root in enumerate((a, b, b, a) * args.rounds):
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", root] + ["--flash"] * args.flash
         out = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
         if out.returncode != 0:

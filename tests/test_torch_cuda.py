@@ -97,6 +97,83 @@ def test_fps_kernel_matches_plain(dev, B, N, npoint, dup):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("N", cuda_fps.block_plan_edges())
+def test_fps_block_design_at_the_edges_of_its_plan(dev, N):
+    """Index-exact on each side of every points-a-thread and warp-count
+    boundary, every pick of the small clouds (npoint = N)."""
+    npoint = N if N <= 1025 else 300
+    x = _cloud(N + 7, 2, N).to(dev)
+    assert cuda_fps.design(N) == "block"
+    got = cuda_fps._sample("block", npoint, x)
+    want = tg.farthest_point_sample(npoint, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _lattice_cloud(B, side):
+    """An integer lattice of side**3 points: ties at every distance."""
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    return torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        g.astype(np.float32), (B,) + g.shape)))
+
+
+@pytest.mark.parametrize("case,B,N,npoint", [
+    ("equal", 4, 100, 100),      # one warp: every distance 0 after the first pick
+    ("equal", 4, 5000, 200),     # several warps, warps with no point late in a row
+    ("duplicates", 2, 700, 700),
+    ("duplicates", 2, 10240, 2000),
+    ("lattice", 2, 1000, 1000),   # 10^3
+    ("lattice", 1, 9261, 1500),   # 21^3
+    ("random", 1, 1280, 320),
+    ("random", 8, 1280, 320),
+    ("random", 16, 1280, 320),
+    ("random", 16, 80, 40),
+    ("random", 1, 10240, 10240),  # every pick of the largest cloud
+])
+def test_fps_block_design_edge_cases(dev, case, B, N, npoint):
+    if case == "equal":
+        x = _cloud(N, B, 1).expand(B, N, 3).contiguous()
+    elif case == "lattice":
+        x = _lattice_cloud(B, round(N ** (1 / 3)))
+    else:
+        x = _cloud(N + B, B, N, dup=N // 2 if case == "duplicates" else 0)
+    x = x.to(dev)
+    got = cuda_fps._sample("block", npoint, x)
+    want = tg.farthest_point_sample(npoint, x)
+    torch.cuda.synchronize()
+    assert got.shape == (B, npoint) and torch.equal(got, want)
+    if case == "equal":  # ties go to the lowest index: every pick is point 0
+        assert not got.any()
+
+
+@pytest.mark.parametrize("B", [1, 4, "slots", "slots + 1", 16])
+@pytest.mark.parametrize("N", [cuda_fps.CLUSTER_FROM_N - 1, cuda_fps.CLUSTER_FROM_N, 10240])
+def test_fps_routes_a_batch_of_large_clouds_by_the_cluster_slots(dev, B, N):
+    """Up to the clusters the card runs at once, clouds of CLUSTER_FROM_N to
+    10240 points take the cluster design; either design gives the plain
+    version's indices."""
+    slots = cuda_fps.stated_cluster_slots()
+    B = {"slots": slots, "slots + 1": slots + 1}.get(B, B)
+    if B < 1:
+        pytest.skip("the card runs no cluster of the cluster design")
+    x = _cloud(N + B, B, N).to(dev)
+    routed = cuda_fps.design(N, cuda_fps.stated_cluster_max_n(), B, slots)
+    assert routed == ("cluster" if N >= cuda_fps.CLUSTER_FROM_N and B <= slots else "block")
+    want = tg.farthest_point_sample(N // 8, x)
+    assert torch.equal(cuda_fps.farthest_point_sample(N // 8, x), want)
+    other = "block" if routed == "cluster" else "cluster"
+    assert torch.equal(cuda_fps._sample(other, N // 8, x), want)
+
+
+def test_fps_block_design_states_the_wrappers_plan(dev):
+    from pointasnl_tpu_torch.ops.cuda import _build
+
+    lib = _build.library()
+    for n in cuda_fps.block_plan_edges():
+        assert (lib.pasnl_fps_block_ppt(n), lib.pasnl_fps_block_warps(n)) == cuda_fps.block_plan(n)
+    assert lib.pasnl_fps_block_ppt(cuda_fps.BLOCK_MAX_N + 1) == 0
+
+
 @pytest.mark.parametrize("B,N,M,k,case", [
     (8, 1024, 512, 32, "disjoint"),  # the slice's layer 1 shapes
     (8, 512, 128, 64, "disjoint"),   # the slice's layer 2 shapes
@@ -622,6 +699,20 @@ FLASH_CASES = {
     "q x 30": (2, 100, 3000, 32, 32, True, 30.0),
     "B 1": (1, 300, 700, 32, 32, True, 1.0),
     "C 8 D 12": (2, 60, 200, 8, 12, True, 1.0),
+    # The forward's tile (64 query rows), chunk (64 keys at P <= 64, 32 at
+    # 128, 16 at 256) and key ranges (B1 M64 N 1025: 17 chunks in 9 ranges,
+    # the last of one key), and widths off its padding:
+    "M 63": (2, 63, 300, 32, 32, True, 1.0),
+    "M 65": (2, 65, 300, 32, 32, True, 1.0),
+    "N 63": (2, 100, 63, 32, 32, True, 1.0),
+    "N 65": (2, 100, 65, 32, 32, True, 1.0),
+    "N 1025 B1 M64": (1, 64, 1025, 32, 32, True, 1.0),
+    "N 33 C 128": (2, 70, 33, 128, 128, True, 1.0),
+    "C 1": (2, 50, 300, 1, 1, True, 1.0),
+    "C 32 D 64": (2, 90, 700, 32, 64, True, 1.0),
+    "C 64 D 20": (2, 90, 700, 64, 20, True, 1.0),
+    "C 256": (2, 100, 300, 256, 256, True, 1.0),
+    "C 256 N 17": (1, 130, 17, 256, 256, True, 1.0),
 }
 
 
@@ -672,6 +763,41 @@ def test_flash_backward_is_deterministic(dev):
     first = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
     again = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("case", ["seg level 1", "seg level 4", "M 77", "C 256"])
+def test_flash_forward_is_deterministic(dev, case):
+    """Two launches give the same bits, ranges merged in order."""
+    q, k, v, _, scale = flash_inputs(case, dev)
+    first = cuda_flash.flash_forward(q, k, v, scale)
+    again = cuda_flash.flash_forward(q, k, v, scale)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("splits,B,M,N", [
+    (1, 1, 84480, 300),     # 1320 tiles fill the card: one range
+    (2, 1, 44800, 1280),    # 700 tiles: two ranges
+    (3, 1, 32000, 1280),    # 500 tiles
+    (16, 1, 64, 2048),      # one tile: the most ranges
+    (2, 1, 84480, 65600),   # 1320 tiles, but a range holds at most 65536 keys
+])
+def test_flash_forward_holds_at_any_split(dev, splits, B, M, N):
+    """The forward at shapes where the library splits a tile's keys into
+    1, 2, 3 and 16 ranges (its scratch says how many): the plain version's
+    function at each."""
+    from pointasnl_tpu_torch.ops.cuda import _build
+
+    assert _build.library().pasnl_flash_fwd_scratch(B, M, N, 32, 32) == (
+        splits * B * M * 34 if splits > 1 else 0)
+    rng = np.random.RandomState(splits + N)
+    q, k, v = (torch.from_numpy(rng.randn(B, n, 32).astype(np.float32)).to(dev)
+               for n in (M, N, N))
+    scale = tf.flash_scale(32)
+    o, lse = cuda_flash.flash_forward(q, k, v, scale)
+    po, plse = tf.flash_forward_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert float((o - po).abs().max()) <= 1e-5 * float(po.abs().max())
+    assert float((lse - plse).abs().max()) <= 1e-5 * float(plse.abs().max())
 
 
 def test_flash_past_the_tpu_envelope_forward(dev):

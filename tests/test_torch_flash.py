@@ -141,6 +141,26 @@ def test_flash_in_float64_returns_float64_at_float32_precision():
     assert 1e-10 < _rel_err(out.detach(), dense) < 1e-6
 
 
+@pytest.mark.parametrize("B,M,N,C,D", [
+    (2, 1, 300, 32, 32),     # one query row
+    (2, 65, 63, 32, 32),     # a row past the kernel's 64-row tile, keys short of its chunk
+    (1, 64, 1025, 32, 32),   # one key past the plain version's 1024-key chunk
+    (2, 50, 300, 1, 1),      # C = D = 1
+    (2, 90, 700, 32, 64),    # C != D
+    (1, 30, 200, 256, 256),  # the widest the kernel takes
+])
+def test_flash_forward_reference_holds_at_the_kernels_edges(B, M, N, C, D):
+    """The plain forward, which the card's kernel is held to, against dense
+    float64 attention where the kernel's tiles, chunks and widths end."""
+    q, k, v = map(torch.from_numpy, _qkv(M + N + C, B, M, N, C, D))
+    scale = tf.flash_scale(C)
+    o, lse = tf.flash_forward_reference(q, k, v, scale)
+    assert o.dtype == lse.dtype == torch.float32 and o.shape == (B, M, D) and lse.shape == (B, M)
+    s = torch.einsum("bmc,bnc->bmn", q.double(), k.double()) * scale
+    assert _rel_err(o, torch.einsum("bmn,bnd->bmd", torch.softmax(s, -1), v.double())) <= 1e-6
+    assert _rel_err(lse, torch.logsumexp(s, -1)) <= 1e-6
+
+
 def test_flash_attention_keeps_cpu_tensors_off_the_kernel():
     q, k, v = map(torch.from_numpy, _qkv(5, 1, 4, 9, 8, 8))
     launches = cuda_flash.fwd_launches, cuda_flash.bwd_launches

@@ -82,6 +82,59 @@ def test_fps_design_routes_each_n_to_the_smallest_design_that_holds_it(n, cluste
     assert all(n > caps[d] for d in cuda_fps.DESIGNS[:cuda_fps.DESIGNS.index(name)])
 
 
+@pytest.mark.parametrize("n,batch,slots,cluster_max_n,name", [
+    (10240, 4, 8, cuda_fps.CLUSTER_MAX_N, "cluster"),   # the seg step's first FPS
+    (10240, 8, 8, cuda_fps.CLUSTER_MAX_N, "cluster"),   # every cluster at once
+    (10240, 9, 8, cuda_fps.CLUSTER_MAX_N, "block"),     # a second wave of clusters
+    (10240, 16, 8, cuda_fps.CLUSTER_MAX_N, "block"),
+    (cuda_fps.CLUSTER_FROM_N, 1, 8, cuda_fps.CLUSTER_MAX_N, "cluster"),
+    (cuda_fps.CLUSTER_FROM_N - 1, 1, 8, cuda_fps.CLUSTER_MAX_N, "block"),
+    (10240, 4, 0, cuda_fps.CLUSTER_MAX_N, "block"),     # a card that runs no cluster
+    (10240, 4, 8, 0, "block"),                          # a card that states no cluster cap
+    (10241, 16, 8, cuda_fps.CLUSTER_MAX_N, "cluster"),  # past the block design, any batch
+])
+def test_fps_design_routes_a_small_batch_of_large_clouds_to_the_cluster_design(
+        n, batch, slots, cluster_max_n, name):
+    assert cuda_fps.design(n, cluster_max_n, batch, slots) == name
+
+
+@pytest.mark.parametrize("stated,slots", [(7, 7), (-801, 0)])  # -cudaErrorNotSupported
+def test_fps_routes_by_the_cluster_slots_the_library_states(monkeypatch, stated, slots):
+    class Library:
+        calls = 0
+
+        def pasnl_fps_cluster_slots(self):
+            Library.calls += 1
+            return stated
+
+    monkeypatch.setattr(cuda_fps, "_cluster_slots", {})
+    lib = Library()
+    assert cuda_fps.stated_cluster_slots(lib, device=0) == slots
+    assert cuda_fps.stated_cluster_slots(lib, device=0) == slots and Library.calls == 1
+    assert cuda_fps.design(10240, cuda_fps.CLUSTER_MAX_N, 4, slots) == (
+        "cluster" if slots >= 4 else "block")
+
+
+@pytest.mark.parametrize("n,plan", [
+    (1, (1, 1)), (32, (1, 1)), (33, (2, 1)), (65, (4, 1)), (80, (4, 1)), (129, (8, 1)),
+    (256, (8, 1)), (257, (1, 9)), (320, (1, 10)), (512, (1, 16)), (513, (4, 5)),
+    (1024, (4, 8)), (1280, (4, 10)), (2048, (4, 16)), (2049, (16, 5)), (4096, (16, 8)),
+    (10240, (16, 20))])
+def test_fps_block_plan_takes_the_fewest_warps_that_hold_n(n, plan):
+    """One warp up to 256 points; then 1, 4 or 16 points a thread in the
+    fewest warps that hold n, 5 to 20 of them."""
+    assert cuda_fps.block_plan(n) == plan
+    ppt, warps = plan
+    assert ppt in (1, 2, 4, 8, 16) and 1 <= warps <= 20
+    assert (warps - 1) * 32 * ppt < n <= warps * 32 * ppt
+
+
+def test_fps_block_plan_takes_no_n_past_the_block_design():
+    for n in (0, cuda_fps.BLOCK_MAX_N + 1):
+        with pytest.raises(ValueError, match="block design"):
+            cuda_fps.block_plan(n)
+
+
 @pytest.mark.parametrize("stated,cap", [(cuda_fps.CLUSTER_MAX_N, cuda_fps.CLUSTER_MAX_N),
                                         (-801, 0)])  # -cudaErrorNotSupported: no room
 def test_fps_routes_by_the_cluster_cap_the_library_states(monkeypatch, stated, cap):
