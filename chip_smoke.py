@@ -20,7 +20,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      lattices, k of 3, 64 and 128, k > N, N not a multiple of the 1024-point
      tile, copies of points across tile boundaries).
   4. Ball-query kernel against its plain version on the card: indices and
-     counts exact at the repulsion loss's shape and the edge cases.
+     counts exact at the repulsion loss's shape and the edge cases (among
+     them N past the kernel's 3072-point tile, nsample 128, M not a multiple
+     of a block's queries, a ball holding every point).
   5. Slice 1: ``PointASNLCls(40, adaptive_sample=True)`` from a seeded
      generator answers 3 requests of random B8 x 1024 clouds through
      ``serve.make_inference_fn``. FPS and kNN must launch 2 times a request.
@@ -58,9 +60,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
      the spatial kernel tests, and the streaming kNN on each resident and
      spatial kNN's search (off the path, to compare them), each resident and
      spatial time beside the shared-memory design's
-     (KNN_SHARED_MEMORY_DESIGN_MS); the gather
-     backward on a seg step's 19 gathers, each call with its sort, and the
-     19 as the step runs them (12 sorts), beside index_add_; the block-design
+     (KNN_SHARED_MEMORY_DESIGN_MS); the ball query at the repulsion loss's
+     shape and at N 10240 (off the path), with the mean count; the gather
+     backward on a seg step's 19 gathers, each call with its own plan (the
+     sum kernel's device ms beside), the step's 12 plans beside segments'
+     sort, and the 19 as the step runs them (12 plans), beside index_add_;
+     the plan off the path at B16 x 10240's level 1, with its counters in
+     device memory and on long segments; the block-design
      FPS and the flash forward beside their parent designs' device ms
      (FPS_SHARED_MEMORY_DESIGN_MS, FLASH_FWD_TWO_LANE_DESIGN_MS); the B8 x
      1024 cls forward; the B4 x 10240 train step
@@ -109,10 +115,14 @@ Phases (any failure raises, and the script exits non-zero with no result):
      tests), FPS and its 8 spatial and 2 resident searches (device ms from
      the profiled request). This phase alone: ``python3 -c "import chip_smoke as c;
      d = c.phase_device(); c.slice5(d[1], d[0], print)"``.
- 13. Slice 6, run after phase 11 and before the timing: the gather backward
-     kernel on each of a B4 x 10240 seg step's 19 gathers (12 sorts: the
-     gathers that share indices share them), equal to the bit to its plain
-     version, to CPU float32 index_add_ and to a second launch;
+ 13. Slice 6, run after phase 11 and before the timing: a B4 x 10240 seg
+     step's 19 gather backwards on 12 plans (the gathers that share indices
+     share one), with segments, the plan's plain version, stubbed to raise;
+     the plan kernel's order and offsets equal to segments' on each of the
+     19 and on PLAN_CASES (B16 x 10240's level 1, counters past shared
+     memory, long segments, rows never gathered); the gather backward on
+     each of the 19 equal to the bit to its plain version, to CPU float32
+     index_add_ and to a second launch;
      then two seg train steps at B4 x 10240 from one state with one dropout
      seed, dense and under nl_use_flash, whose gradients, updated parameters
      and BN statistics must be equal to the bit; then, apart from that
@@ -168,10 +178,18 @@ KERNELS = {  # "symbol": what the kernel's name holds in a profiler trace
                   "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:170",
                   "symbol": ("flash_bwd_delta_kernel", "flash_bwd_kernel",
                              "flash_bwd_dq_sum_kernel")},
-    # Not a Pallas kernel: the TPU package's deterministic gather VJP.
+    # Not a Pallas kernel: the TPU package's deterministic gather VJP. A call
+    # runs the plan (one an index tensor, shared by the gathers of that
+    # tensor: its count and fill, then its ranking) and the sum; its rows
+    # time a call with its own plan.
     "gather_bwd": {"source": "pointasnl_tpu_torch/csrc/gather_backward.cu",
                    "replaces": "pointasnl_tpu/ops/scatter.py:40",
                    "symbol": "gather_backward_kernel"},
+    # The plan alone: the gathered rows sorted stably by output row, in one
+    # launch or two (plan_symbols).
+    "gather_plan": {"source": "pointasnl_tpu_torch/csrc/gather_backward.cu",
+                    "replaces": "pointasnl_tpu/ops/scatter.py:40",
+                    "symbol": ("gather_plan_kernel", "gather_rank_kernel")},
 }
 FPS_CLUSTER_SYMBOL = "fps_cluster_kernel"  # the scene-scale design of csrc/fps.cu
 FPS_GRID_SYMBOL = "fps_grid_kernel"  # its design past 278528 points
@@ -240,8 +258,8 @@ REPULSION_RADIUS, REPULSION_NSAMPLE = 0.07, 20
 # Gather backwards a seg train step launches: 22 gathers take a gradient,
 # 19 of them feed the loss (tests/test_torch_gather.py).
 SEG_GATHER_BWD = 19
-# Index tensors those 19 sort: gathers sharing indices share a plan.
-SEG_GATHER_SORTS = 12
+# Plans those 19 make, one an index tensor: gathers sharing indices share it.
+SEG_GATHER_PLANS = 12
 # Card vs CPU train step (phase 7): B2 x 2048 in a 0.4 m cube, so that the
 # 256 points of l1_xyz hold a few neighbours within 0.07.
 CMP_B, CMP_N, CMP_SIDE = 2, 2048, 0.4
@@ -325,7 +343,8 @@ BIG_LEVELS = [BIG_N, BIG_N // 8, BIG_N // 32, BIG_N // 128, BIG_N // 256]
 # fa_layer1's three_nn; FPS the four levels, the first in the grid design and
 # the other three in the cluster design.
 BIG_LAUNCHES = {"fps": 4, "knn_resident": 2, "ball_query": 0, "knn_spatial": 8,
-                "knn_streaming": 1, "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0}
+                "knn_streaming": 1, "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0,
+                "gather_plan": 0}
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
 # on the tensor cores (dense) and HBM bandwidth, for each kernel's bound.
@@ -496,6 +515,26 @@ def flash_bwd_symbols(B, M, N, C, D):
 
     split = _build.library().pasnl_flash_bwd_scratch(B, M, N, C, D) > 0
     return ("flash_bwd_delta_kernel", "flash_bwd_kernel") + ("flash_bwd_dq_sum_kernel",) * split
+
+
+def plan_symbols(B, R, n):
+    """The kernels one gather plan launches at this shape: the count and
+    fill, and the ranking where the library launches it."""
+    from pointasnl_tpu_torch.ops.cuda import _build
+
+    kernels = _build.library().pasnl_gather_plan_launches(B, R, n)
+    return KERNELS["gather_plan"]["symbol"][:kernels]
+
+
+def seg_plans(gathers):
+    """(idx, n) of each plan a seg step's gathers make: one an index tensor,
+    keyed as gather_backward.plan keys it."""
+    plans = {}
+    for _, idx, n in gathers:
+        base = idx if idx._base is None else idx._base
+        plans.setdefault((id(base), n, tuple(idx.shape), idx.stride(), idx.storage_offset()),
+                         (idx, n))
+    return list(plans.values())
 
 
 def ball_bound(N, M, B, nsample, idx, cnt):
@@ -730,6 +769,17 @@ def ball_cases(dev):
     cases.append(("duplicate points", t(x), t(x[:, 250:350]), 0.06, 24))
     x = rng.rand(1, 10240, 3) * 0.5
     cases.append(("N 10240", t(x), t(x[:, ::8]), 0.07, 20))
+    # The kernel's tiles: a block stages up to 3072 points (csrc/ball_query.cu),
+    # so these walk several, some queries past the last tile's start.
+    x = rng.rand(2, 9001, 3) * 0.5
+    cases.append(("N 9001 (three tiles)", t(x), t(x[:, ::13]), 0.05, 32))
+    x = rng.rand(1, 8192, 3) * 0.5
+    x[0, 8000:] = x[0, 4000]  # a far cluster: hits past the second tile
+    cases.append(("hits in the last tile", t(x), t(x[:, 3990:4010]), 0.02, 128))
+    x = rng.rand(2, 700, 3) * 0.5
+    cases.append(("nsample 128", t(x), t(x[:, ::3]), 0.25, 128))
+    cases.append(("M not a multiple of a block's queries", t(x), t(x[:, :333]), 0.1, 20))
+    cases.append(("every point in the ball", t(x), t(x[:, :40]), 10.0, 128))
     return cases
 
 
@@ -746,6 +796,9 @@ def phase_ball(dev) -> float:
                                f"{int((got_c != want_c).sum())} counts differ")
         if name == "a point at exactly r" and 12 in got_i.flatten().tolist():
             raise RuntimeError("ball query: a point at distance exactly r is in the ball")
+        if name == "every point in the ball" and not bool(
+                (got_c == min(nsample, xyz.shape[1])).all()):
+            raise RuntimeError("ball query: a ball holding every point is not full")
         print(f"ball query {name}: indices and counts exact; mean count "
               f"{float(got_c.float().mean()):.2f}, max {int(got_c.max())} of {nsample}")
     return 0.0
@@ -767,7 +820,7 @@ def counts():
     return {"fps": fps.launches, "knn_resident": knn.launches, "ball_query": ball_query.launches,
             "knn_spatial": knn_spatial.launches, "knn_streaming": knn_streaming.launches,
             "flash_fwd": flash_attention.fwd_launches, "flash_bwd": flash_attention.bwd_launches,
-            "gather_bwd": gather_backward.launches}
+            "gather_bwd": gather_backward.launches, "gather_plan": gather_backward.plan_launches}
 
 
 def reset_counts():
@@ -776,7 +829,7 @@ def reset_counts():
 
     fps.launches = knn.launches = ball_query.launches = knn_spatial.launches = 0
     knn_streaming.launches = flash_attention.fwd_launches = flash_attention.bwd_launches = 0
-    gather_backward.launches = 0
+    gather_backward.launches = gather_backward.plan_launches = 0
 
 
 def phase_cls(dev):
@@ -797,7 +850,7 @@ def phase_cls(dev):
     print(f"cls slice: {REQUESTS} requests of B{BATCH}x{NUM_POINT}; launches {launches}")
     if launches != {"fps": 2 * REQUESTS, "knn_resident": 2 * REQUESTS, "ball_query": 0,
                     "knn_spatial": 0, "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0,
-                    "gather_bwd": 0}:
+                    "gather_bwd": 0, "gather_plan": 0}:
         raise RuntimeError(f"cls launches {launches}, expected 2 FPS and 2 kNN a request")
 
     for r, (x, out) in enumerate(zip(clouds, logits)):
@@ -884,10 +937,11 @@ def phase_seg(dev, flash: bool = False):
     if launches != {"fps": 4 * SEG_STEPS, "knn_resident": 11 * SEG_STEPS,
                     "ball_query": SEG_STEPS, "knn_spatial": 0, "knn_streaming": 0,
                     "flash_fwd": nl * SEG_STEPS, "flash_bwd": nl * SEG_STEPS,
-                    "gather_bwd": SEG_GATHER_BWD * SEG_STEPS}:
+                    "gather_bwd": SEG_GATHER_BWD * SEG_STEPS,
+                    "gather_plan": SEG_GATHER_PLANS * SEG_STEPS}:
         raise RuntimeError(f"{label} train launches {launches}, expected FPS 4, kNN 11, "
                            f"ball query 1, flash forward {nl} and backward {nl}, gather "
-                           f"backward {SEG_GATHER_BWD} a step")
+                           f"backward {SEG_GATHER_BWD} on {SEG_GATHER_PLANS} plans a step")
     for s, m in enumerate(metrics):
         m = {k: float(v) for k, v in m.items()}
         print(f"step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in m.items()))
@@ -911,7 +965,8 @@ def phase_seg(dev, flash: bool = False):
           f"{serve_launches}")
     if serve_launches != {"fps": 4 * SEG_REQUESTS, "knn_resident": 11 * SEG_REQUESTS,
                           "ball_query": 0, "knn_spatial": 0, "knn_streaming": 0,
-                          "flash_fwd": nl * SEG_REQUESTS, "flash_bwd": 0, "gather_bwd": 0}:
+                          "flash_fwd": nl * SEG_REQUESTS, "flash_bwd": 0, "gather_bwd": 0,
+                          "gather_plan": 0}:
         raise RuntimeError(f"{label} serve launches {serve_launches}, expected FPS 4, kNN 11, "
                            f"flash forward {nl} and no ball query, flash or gather backward a "
                            f"request")
@@ -1005,34 +1060,60 @@ def seg_gathers(dev):
     """(dout, idx, n) of each gather backward of one B4 x 10240 seg train step,
     recorded at the kernel's wrapper, in the order the step launched them;
     idx as the step passed it, so the gathers that share an index tensor
-    share its plan (one sort) here too."""
+    share its plan here too. The step must make SEG_GATHER_PLANS plans on
+    the card and never call segments, the plan's plain version (a stub that
+    raises stands in for it)."""
     from pointasnl_tpu_torch.models import PointASNLSemSegRes
     from pointasnl_tpu_torch.ops.cuda import gather_backward
 
     model = PointASNLSemSegRes(SEG_CLASSES, generator=torch.Generator().manual_seed(SEED + 3),
                                device=dev)
     state, step = seg_trainer(model, SEG_B)
-    cases, sorts = [], []
+    cases = []
     launch, segments = gather_backward.gather_backward, gather_backward.segments
 
     def record(dout, idx, n):
         cases.append((dout.detach().clone(), idx, n))
         return launch(dout, idx, n)
 
-    def count(idx, n):
-        sorts.append(n)
-        return segments(idx, n)
+    def refuse(idx, n):
+        raise RuntimeError("a gather backward on the card called segments, the plain plan")
 
-    gather_backward.gather_backward, gather_backward.segments = record, count
+    gather_backward.gather_backward, gather_backward.segments = record, refuse
+    plans = gather_backward.plan_launches
     try:
         step(state, seg_batch(210, SEG_B, SEG_N, SEG_SIDE, dev))
     finally:
         gather_backward.gather_backward, gather_backward.segments = launch, segments
     torch.cuda.synchronize()
-    if len(cases) != SEG_GATHER_BWD or len(sorts) != SEG_GATHER_SORTS:
-        raise RuntimeError(f"a seg step ran {len(cases)} gather backwards on {len(sorts)} sorts, "
-                           f"expected {SEG_GATHER_BWD} on {SEG_GATHER_SORTS}")
+    plans = gather_backward.plan_launches - plans
+    if len(cases) != SEG_GATHER_BWD or plans != SEG_GATHER_PLANS:
+        raise RuntimeError(f"a seg step ran {len(cases)} gather backwards on {plans} plans, "
+                           f"expected {SEG_GATHER_BWD} on {SEG_GATHER_PLANS}")
     return cases
+
+
+# (name, B, n output rows, R rows, the output rows the indices take or None
+# for all) of the plan kernel's checks beside a seg step's: the B16 x 10240
+# recipe's level 1, counters and slots past a block's shared memory (n + R
+# ints), long segments (the walk in order), rows never gathered.
+PLAN_CASES = [("B16 level 1 grouping", 16, SEG_N, 1280 * 32, None),
+              ("counters past shared memory", 2, 60000, 5000, None),
+              ("a row gathered 3000 times", 2, 5, 3000, (0, 3)),
+              ("long and short segments", 2, 9, 5000, None),
+              ("most rows never gathered", 1, 1000, 10, None),
+              ("one row", 1, 1, 4, None)]
+
+
+def plan_cases(dev):
+    """(name, idx, n) of PLAN_CASES, seeded."""
+    out = []
+    for name, B, n, R, rows in PLAN_CASES:
+        rng = np.random.RandomState(sum(map(ord, name)))
+        idx = (rng.randint(0, n, (B, R)) if rows is None
+               else np.asarray(rows)[rng.randint(0, len(rows), (B, R))])
+        out.append((name, torch.from_numpy(idx.astype(np.int32)).to(dev), n))
+    return out
 
 
 def index_add(dout, idx, n):
@@ -1043,12 +1124,26 @@ def index_add(dout, idx, n):
 
 
 def phase_gather(dev):
-    """The gather backward kernel on each of a seg step's 19 gathers: equal to
-    the bit to its plain version on the card, to CPU float32 index_add_, and
-    to a second launch. Returns the cases, for the timing."""
+    """The plan kernel's (order, offsets) equal to segments, its plain
+    version, for each of a seg step's 19 gathers and PLAN_CASES; the gather
+    backward on each of the 19 equal to the bit to its plain version on the
+    card, to CPU float32 index_add_, and to a second launch. Returns the
+    step's cases, for the timing."""
     from pointasnl_tpu_torch.ops.cuda import gather_backward
 
     cases = seg_gathers(dev)
+    checks = [(f"seg step gather {i}", idx, n) for i, (_, idx, n) in enumerate(cases)]
+    for name, idx, n in checks + plan_cases(dev):
+        B, R = idx.shape
+        got, want = gather_backward.plan_kernel(idx, n), gather_backward.segments(idx, n)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"gather plan {name}, B{B} {R} rows -> {n}: (order, offsets) "
+                               f"differ from segments")
+        longest = int(torch.diff(want[1].long()).max())
+        print(f"gather plan {name}, B{B} {R} rows -> {n}: order and offsets equal to segments "
+              f"(longest segment {longest} rows; the walk in order past "
+              f"{gather_backward.long_len(R)})")
     for i, (dout, idx, n) in enumerate(cases):
         B, R, C = dout.shape
         got = gather_backward.gather_backward(dout, idx, n)
@@ -1253,7 +1348,7 @@ def phase_scene(dev):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want = {"fps": 4 * SCENE_REQUESTS, "knn_resident": 8 * SCENE_REQUESTS, "ball_query": 0,
             "knn_spatial": 3 * SCENE_REQUESTS, "knn_streaming": 0, "flash_fwd": 0,
-            "flash_bwd": 0, "gather_bwd": 0}
+            "flash_bwd": 0, "gather_bwd": 0, "gather_plan": 0}
     if launches != want:
         raise RuntimeError(f"whole-scene launches {launches}, expected FPS 4, spatial kNN 3, "
                            f"resident kNN 8 and no ball query a request")
@@ -1395,6 +1490,11 @@ def gather_bound(B, n, R, C):
     return bound(B * R * C * 4 + B * R * 4 + B * n * C * 4, B * R * C)
 
 
+def plan_bound(B, n, R):
+    # idx in, order and offsets out, each once; one count and one slot a row.
+    return bound(B * R * 4 + B * R * 4 + (B * n + 1) * 4, 2 * B * R)
+
+
 def time_kernels(dev, card, gathers):
     """Kernel vs plain times, and bounds, at every slice's shapes; `gathers`
     are the (dout, idx, n) of a seg step's gather backwards."""
@@ -1448,7 +1548,18 @@ def time_kernels(dev, card, gathers):
     add("ball_query", "seg", f"B{SEG_B} {n1}q/{n1} ns{REPULSION_NSAMPLE} r{REPULSION_RADIUS}",
         lambda: geometry.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1),
         lambda: ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1),
-        ball_bound(n1, n1, SEG_B, REPULSION_NSAMPLE, idx, cnt))
+        ball_bound(n1, n1, SEG_B, REPULSION_NSAMPLE, idx, cnt),
+        mean_count=float(cnt.float().mean()))
+    # Off the path: the ball query's N 10240 check, past one tile.
+    x = cube(24, 1, SEG_N, SEG_SIDE, dev)
+    q = x[:, ::8].contiguous()
+    idx, cnt = ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, x, q)
+    add("ball_query", "check", f"B1 {q.shape[1]}q/{SEG_N} ns{REPULSION_NSAMPLE} "
+        f"r{REPULSION_RADIUS}",
+        lambda: geometry.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, x, q),
+        lambda: ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, x, q),
+        ball_bound(SEG_N, q.shape[1], 1, REPULSION_NSAMPLE, idx, cnt),
+        mean_count=float(cnt.float().mean()))
 
     # The whole-scene request's shapes, on a scene of bench.py's density.
     levels = scene_levels(dev, seed=23)
@@ -1503,17 +1614,19 @@ def time_kernels(dev, card, gathers):
             library=sdpa_fwd_bwd, bound_f32_ms=flash_bwd_bound(B, M, N, C, D, None)[0])
 
     # The seg step's gather backwards; index_add_ (atomics on the card) is
-    # the one PyTorch call computing the same sums, in another order.
+    # the one PyTorch call computing the same sums, in another order. A row
+    # times a call with its own plan (plan and sum kernels); sum_ms is its sum
+    # kernel alone, on the plan kept from an earlier call.
     from pointasnl_tpu_torch.ops.cuda import gather_backward
 
-    def drop_plans(idx):  # the sorts kept on the tensor idx views
+    def drop_plans(idx):  # the plans kept on the tensor idx views
         (idx if idx._base is None else idx._base).__dict__.pop("_gather_backward_plans", None)
 
-    def sorted_anew(dout, idx, n):  # a call with its sort
+    def planned_anew(dout, idx, n):  # a call with its plan
         drop_plans(idx)
         return gather_backward.gather_backward(dout, idx, n)
 
-    def as_a_step_runs_them():  # the 19 calls in order, each index tensor sorted once
+    def as_a_step_runs_them():  # the 19 calls in order, each index tensor planned once
         for _, idx, _ in gathers:
             drop_plans(idx)
         for dout, idx, n in gathers:
@@ -1521,16 +1634,43 @@ def time_kernels(dev, card, gathers):
 
     for dout, idx, n in gathers:
         B, R, C = dout.shape
+        gather_backward.gather_backward(dout, idx, n)  # keeps its plan, for sum_ms
+        sum_ms = device_ms(lambda a=(dout, idx, n): gather_backward.gather_backward(*a),
+                           "gather_backward_kernel")
         add("gather_bwd", "seg", f"B{B} {R} rows -> {n} C{C}",
             lambda a=(dout, idx, n): gather_backward.gather_backward_reference(*a),
-            lambda a=(dout, idx, n): sorted_anew(*a), gather_bound(B, n, R, C),
-            plain_timing=SLOW, library=lambda a=(dout, idx, n): index_add(*a))
+            lambda a=(dout, idx, n): planned_anew(*a), gather_bound(B, n, R, C),
+            plain_timing=SLOW, library=lambda a=(dout, idx, n): index_add(*a), sum_ms=sum_ms,
+            symbol=plan_symbols(B, R, n) + (KERNELS["gather_bwd"]["symbol"],))
+    for idx, n in seg_plans(gathers):
+        B, R = idx.shape
+        plan, symbols = (lambda a=(idx, n): gather_backward.plan_kernel(*a),  # noqa: E731
+                         plan_symbols(B, R, n))
+        add("gather_plan", "seg", f"B{B} {R} rows -> {n}",
+            lambda a=(idx, n): gather_backward.segments(*a), plan, plan_bound(B, n, R),
+            symbol=symbols, fill_ms=device_ms(plan, symbols[0]),
+            rank_ms=device_ms(plan, symbols[1]) if len(symbols) > 1 else 0.0)
+    # The B16 recipe's level 1, the counters in device memory and the walk in
+    # order, off the path.
+    for name, idx, n in plan_cases(dev)[:3]:
+        B, R = idx.shape
+        add("gather_plan", "check", f"B{B} {R} rows -> {n} ({name})",
+            lambda a=(idx, n): gather_backward.segments(*a),
+            lambda a=(idx, n): gather_backward.plan_kernel(*a), plan_bound(B, n, R),
+            symbol=plan_symbols(B, R, n))
 
     for name, rs in rows.items():
         for r in rs:
             tested = (f", pairs tested {r['pairs_tested']} ({100 * r['pairs_tested_share']:.3f} % "
                       f"of M x N)" if "pairs_tested" in r else "")
             lib_name = "index_add_" if name == "gather_bwd" else "F.scaled_dot_product_attention"
+            if "mean_count" in r:
+                tested += f", mean count {r['mean_count']:.3f}"
+            if "fill_ms" in r:
+                tested += (f", its count and fill {r['fill_ms']} ms and ranking {r['rank_ms']} "
+                           f"ms on the device")
+            if r.get("sum_ms") is not None:
+                tested += f", the sum kernel {r['sum_ms']:.4f} ms on the device"
             lib = (f", {lib_name} {r['library_ms']:.4f} ms"
                    f"{' (forward and backward)' if name == 'flash_bwd' else ''}"
                    if r["library_ms"] is not None else "")
@@ -1547,24 +1687,23 @@ def time_kernels(dev, card, gathers):
                   f"{r['call_ms']:.4f} ms a call back to back, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
                   f"{lib}{tested}  [{card}]")
-    sorts, segments = [], gather_backward.segments
-    gather_backward.segments = lambda *a: sorts.append(1) or segments(*a)
-    try:
-        as_a_step_runs_them()
-    finally:
-        gather_backward.segments = segments
+    plans = gather_backward.plan_launches
+    as_a_step_runs_them()
+    plans = gather_backward.plan_launches - plans
     step_ms = statistics.median(time_ms(as_a_step_runs_them, *LIGHT))
     add_ms = statistics.median(time_ms(lambda: [index_add(*g) for g in gathers], *LIGHT))
     print(f"time gather_bwd [seg]: a step's {len(gathers)} calls as the step runs them "
-          f"({len(sorts)} sorts, the plans shared), {step_ms:.4f} ms by CUDA events back to back "
+          f"({plans} plans, shared), {step_ms:.4f} ms by CUDA events back to back "
           f"against index_add_'s {add_ms:.4f} ms on the same {len(gathers)} shapes: "
-          f"{'the kernel' if step_ms < add_ms else 'index_add_'} is faster  [{card}]")
-    g = rows["gather_bwd"]
-    print(f"time gather_bwd [seg]: a step's {len(g)} calls, each with its sort, "
+          f"{'the kernels are' if step_ms < add_ms else 'index_add_ is'} faster  [{card}]")
+    g, p = rows["gather_bwd"], [r for r in rows["gather_plan"] if r["path"] == "seg"]
+    print(f"time gather_bwd [seg]: a step's {len(g)} calls, each with its own plan, "
           f"{sum(r['call_ms'] for r in g):.4f} ms back to back against index_add_'s "
-          f"{sum(r['library_ms'] for r in g):.4f} ms; {sum(r['ms'] for r in g):.4f} ms of it "
-          f"the kernel on the device; a step sorts {SEG_GATHER_SORTS} index tensors for them  "
-          f"[{card}]")
+          f"{sum(r['library_ms'] for r in g):.4f} ms; on the device {sum(r['ms'] for r in g):.4f} "
+          f"ms, of which the sum kernel {sum(r['sum_ms'] or 0.0 for r in g):.4f} ms; the step's "
+          f"{len(p)} plans {sum(r['ms'] for r in p):.4f} ms on the device (bound "
+          f"{sum(r['bound_ms'] for r in p):.5f} ms), {sum(r['call_ms'] for r in p):.4f} ms a call "
+          f"back to back, segments (torch.sort) {sum(r['plain_ms'] for r in p):.4f} ms  [{card}]")
     fwd, bwd = rows["flash_fwd"][0], rows["flash_bwd"][0]  # level 1
     both = fwd["ms"] + bwd["ms"]
     print(f"time flash [seg_flash] {fwd['shape']}: forward and backward {both:.4f} ms on the "
@@ -1617,7 +1756,7 @@ def time_seg(card, runs: dict, batch) -> dict:
 
 
 def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x,
-               flash_state, flash_step, flash_infer):
+               flash_state, flash_step, flash_infer, plan_kernels: int):
     x = cloud(13, BATCH, NUM_POINT, dev)
     fwd, p90 = percentiles(time_ms(lambda: cls_infer(x), reps=50))
     print(f"time cls forward B{BATCH}x{NUM_POINT}: p50 {fwd:.3f} ms, p90 {p90:.3f} ms of 50 "
@@ -1625,7 +1764,8 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
 
     batch = seg_batch(500, SEG_B, SEG_N, SEG_SIDE, dev)
     dense = {"fps": 4, "knn": 11, "knn_spatial": 0, "knn_streaming": 0, "ball_query": 1,
-             "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": SEG_GATHER_BWD}
+             "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": SEG_GATHER_BWD,
+             "gather_plan": plan_kernels}
     # The dense step and the same step under nl_use_flash, in turns; a flash
     # backward is three CUDA kernels at each seg level (delta, then dQ, dK
     # and dV, then the split dQ's sum), a forward one or two (the kernel,
@@ -1646,7 +1786,7 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     profile_window(lambda: scene_infer(scene_x), 2,
                    {"fps": 4, "knn": 8, "knn_spatial": 3, "knn_streaming": 0, "ball_query": 0,
-                    "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0}, card,
+                    "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0, "gather_plan": 0}, card,
                    "whole-scene requests", "profile_whole_scene.json")
     return {"cls_forward_ms": fwd, "seg_step_ms": step_p50, "seg_serve_ms": serve_p50,
             "flash_seg_step_ms": flash_p50, "flash_seg_serve_ms": flash_serve_p50,
@@ -1660,7 +1800,8 @@ PROFILE_SYMBOLS = {"fps": ("fps_kernel", FPS_CLUSTER_SYMBOL, FPS_GRID_SYMBOL),
                    "flash_fwd": ("flash_fwd_kernel", "flash_fwd_merge_kernel"),
                    "flash_bwd": ("flash_bwd_delta_kernel", "flash_bwd_kernel",
                                  "flash_bwd_dq_sum_kernel"),
-                   "gather_bwd": ("gather_backward_kernel",)}
+                   "gather_bwd": ("gather_backward_kernel",),
+                   "gather_plan": KERNELS["gather_plan"]["symbol"]}
 
 
 def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
@@ -1956,7 +2097,7 @@ def phase_big_scene(dev, card, levels, fps_plain_ms, searches):
     events = profile_window(lambda: infer(x), 1, {"fps": 4, "knn": 2, "knn_spatial": 8,
                                                   "knn_streaming": 1, "ball_query": 0,
                                                   "flash_fwd": 0, "flash_bwd": 0,
-                                                  "gather_bwd": 0},
+                                                  "gather_bwd": 0, "gather_plan": 0},
                             card, "big-scene requests", "profile_big_scene.json")
 
     # The path's streaming kNN and FPS: device ms from the profiled request
@@ -2080,7 +2221,7 @@ def main() -> int:
     phase_card_vs_cpu(dev, flash=True)
     mark("slice 4")
     gathers = phase_gather(dev)
-    errs["gather_bwd"] = 0.0  # equal to the bit, or phase_gather raised
+    errs["gather_bwd"] = errs["gather_plan"] = 0.0  # equal, or phase_gather raised
     phase_determinism(dev)
     mark("slice 6: gather backward checks and determinism")
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
@@ -2088,7 +2229,8 @@ def main() -> int:
     rows = time_kernels(dev, card, gathers)
     mark("kernel timing")
     time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x,
-               flash_state, flash_step, flash_infer)
+               flash_state, flash_step, flash_infer,
+               sum(len(plan_symbols(*idx.shape, n)) for idx, n in seg_plans(gathers)))
     print(f"card after timing: {clocks} = {smi(clocks)}")
     mark("path timing")
     big_launches, big_rows, big_errs = slice5(dev, card, mark)

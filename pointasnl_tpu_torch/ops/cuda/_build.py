@@ -87,6 +87,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_longlong
     lib.pasnl_gather_backward.argtypes = [p, p, p, p, ctypes.c_longlong, i, p]
     lib.pasnl_gather_backward.restype = i
+    lib.pasnl_gather_plan.argtypes = [p, p, p, p, i, i, i, p]
+    lib.pasnl_gather_plan.restype = i
+    lib.pasnl_gather_plan_scratch.argtypes = [i, i, i]
+    lib.pasnl_gather_plan_scratch.restype = ctypes.c_longlong
+    lib.pasnl_gather_plan_launches.argtypes = [i, i, i]
+    lib.pasnl_gather_plan_launches.restype = i
     for name in ("pasnl_fps_max_n", "pasnl_fps_cluster_max_n", "pasnl_fps_cluster_slots",
                  "pasnl_fps_grid_max_n", "pasnl_fps_grid_blocks", "pasnl_fps_grid_scratch_bytes",
                  "pasnl_knn_max_n", "pasnl_knn_max_k", "pasnl_knn_streaming_max_n",

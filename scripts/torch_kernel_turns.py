@@ -1,6 +1,6 @@
-"""FPS's block design and the flash forward of two source trees, timed in
-turns on a card; or one tree's plans side by side; or the flash forward at the
-B1 x 2228224 request's level 1.
+"""FPS's block design, the flash forward, the ball query and the gather
+backward of two source trees, timed in turns on a card; or one tree's plans
+side by side; or the flash forward at the B1 x 2228224 request's level 1.
 
 Each tree is a checkout of the repo (for example the parent commit unpacked
 with ``git archive`` beside this one). Turns run in the order A, B, B, A, each
@@ -9,18 +9,24 @@ in a process of its own that imports ``pointasnl_tpu_torch`` from its tree
 ``chip_smoke.py`` for its inputs and its profiler timing. A turn runs, from
 seeded inputs (chip_smoke's ``time_kernels`` inputs), every block-design FPS
 of the paths (the seg train step's four levels, the cls request's two, the
-B1 x 131072 request's last two) and the flash forward at the seg step's four
-non-local levels, and takes the device ms of one call (``device_ms``: the
-median of 10 calls by torch.profiler, the forward's merge kernel included
-where a tree has one) and the ms of a call back to back by CUDA events. FPS
-indices must equal the first turn's in every turn; a tree's flash outputs
-must equal its first turn's to the bit, and each turn prints the largest
-|o - plain| over the output's scale. Prints each shape's ms of both trees
-(the median of each tree's turns), then one JSON line.
+B1 x 131072 request's last two), the flash forward at the seg step's four
+non-local levels and the ball query at the repulsion loss's shape and at N
+10240, and takes the device ms of one call (``device_ms``: the median of 10
+calls by torch.profiler, the forward's merge kernel included where a tree
+has one) and the ms of a call back to back by CUDA events; then a seg step's
+19 gather backwards as the step runs them (each index tensor planned once),
+by CUDA events and as the device time of every kernel they launch (the
+plans' sorts or plan kernels included), beside ``index_add_`` on the same
+shapes. FPS and ball-query indices and the gradients must equal the first
+turn's in every turn; a tree's flash outputs must equal its first turn's to
+the bit, and each turn prints the largest |o - plain| over the output's
+scale. Prints each shape's ms of both trees (the median of each tree's
+turns), then one JSON line.
 
     python3 scripts/torch_kernel_turns.py TREE_A TREE_B
     python3 scripts/torch_kernel_turns.py --plans [TREE]    # this tree's plans side by side
     python3 scripts/torch_kernel_turns.py --big [TREE ...]  # flash forward, 278528q/2228224
+    python3 scripts/torch_kernel_turns.py --ball-plans [TREE]  # the ball query's plans
 
 ``--plans`` builds the one tree's kernels with the sweep's entry points
 (-DFPS_PLAN_SWEEP -DFLASH_FWD_PLAN_SWEEP, in a build directory of their
@@ -33,7 +39,11 @@ error against the keys a range holds (``--big``'s 256 rows over 2228224
 keys, and N 131072). ``--big`` times the flash forward once at the
 B1 x 2228224 request's level 1 (278528 queries over 2228224 keys, C = D =
 32, from a seed) by CUDA events, beside its float32 bound and its error on
-256 rows, in each tree given.
+256 rows, in each tree given, and F.scaled_dot_product_attention on the same
+inputs. ``--ball-plans`` builds the sweep's entry points too
+(-DBALL_QUERY_SWEEP) and times the ball query at both of its shapes under
+every plan: 2, 4 or 8 points a lane a round, 1 to 8 queries a warp, each
+exact against the plain version.
 """
 
 from __future__ import annotations
@@ -103,6 +113,48 @@ def _digest(*tensors) -> str:
     return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors)).hexdigest()[:16]
 
 
+def _seg_gathers(smoke, dev):
+    """(dout, idx, n) of each gather backward of one B4 x 10240 seg train step
+    in this tree, recorded at its wrapper (chip_smoke.seg_gathers' inputs)."""
+    import torch
+
+    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+    from pointasnl_tpu_torch.ops.cuda import gather_backward
+
+    model = PointASNLSemSegRes(smoke.SEG_CLASSES, device=dev,
+                               generator=torch.Generator().manual_seed(smoke.SEED + 3))
+    state, step = smoke.seg_trainer(model, smoke.SEG_B)
+    cases, launch = [], gather_backward.gather_backward
+
+    def record(dout, idx, n):
+        cases.append((dout.detach().clone(), idx, n))
+        return launch(dout, idx, n)
+
+    gather_backward.gather_backward = record
+    torch.manual_seed(0)  # dropout's masks: the same gradients in every turn
+    try:
+        step(state, smoke.seg_batch(210, smoke.SEG_B, smoke.SEG_N, smoke.SEG_SIDE, dev))
+    finally:
+        gather_backward.gather_backward = launch
+    return cases
+
+
+def _device_total_ms(fn, calls: int = 10) -> float:
+    """Device time (ms) of every kernel one call of fn launches, by
+    torch.profiler over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
+
+
 def worker_turn(tree: str) -> None:
     _import_tree(tree)
     import torch
@@ -136,6 +188,36 @@ def worker_turn(tree: str) -> None:
                      "call_ms": statistics.median(smoke.time_ms(call, *smoke.LIGHT)),
                      "rel_err": float((o - po).abs().max() / po.abs().max()),
                      "digest": _digest(o, lse)})
+    from pointasnl_tpu_torch.ops.cuda import ball_query, gather_backward
+
+    l1 = smoke.seg_levels(dev, seed=22)[1]
+    x = smoke.cube(24, 1, smoke.SEG_N, smoke.SEG_SIDE, dev)
+    radius, nsample = smoke.REPULSION_RADIUS, smoke.REPULSION_NSAMPLE
+    for path, s, q in (("seg", l1, l1), ("check", x, x[:, ::8].contiguous())):
+        call = lambda: ball_query.query_ball_point(radius, nsample, s, q)  # noqa: E731
+        idx, cnt = call()
+        torch.cuda.synchronize()
+        rows.append({"kernel": "ball_query", "path": path,
+                     "shape": f"B{s.shape[0]} {q.shape[1]}q/{s.shape[1]} ns{nsample} r{radius}",
+                     "ms": smoke.device_ms(call, "ball_query_kernel"),
+                     "call_ms": statistics.median(smoke.time_ms(call, *smoke.LIGHT)),
+                     "digest": _digest(idx, cnt)})
+    gathers = _seg_gathers(smoke, dev)
+
+    def as_a_step_runs_them():  # each index tensor planned once, as in the step
+        for _, idx, _ in gathers:
+            (idx if idx._base is None else idx._base).__dict__.pop("_gather_backward_plans", None)
+        return [gather_backward.gather_backward(*g) for g in gathers]
+
+    grads = as_a_step_runs_them()
+    torch.cuda.synchronize()
+    rows.append({"kernel": "gather_bwd", "path": "seg",
+                 "shape": f"a seg step's {len(gathers)} gather backwards as the step runs them",
+                 "ms": _device_total_ms(as_a_step_runs_them),
+                 "call_ms": statistics.median(smoke.time_ms(as_a_step_runs_them, *smoke.LIGHT)),
+                 "library_ms": statistics.median(smoke.time_ms(
+                     lambda: [smoke.index_add(*g) for g in gathers], *smoke.LIGHT)),
+                 "digest": _digest(*grads)})
     print(json.dumps({"tree": tree, "rows": rows}))
 
 
@@ -145,9 +227,11 @@ def _sweep_library():
     own; the wrappers then launch from it."""
     from pointasnl_tpu_torch.ops.cuda import _build
 
-    _build.NVCC_FLAGS += ["-DFPS_PLAN_SWEEP", "-DFLASH_FWD_PLAN_SWEEP"]
+    _build.NVCC_FLAGS += ["-DFPS_PLAN_SWEEP", "-DFLASH_FWD_PLAN_SWEEP", "-DBALL_QUERY_SWEEP"]
     lib = _build.library()
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pasnl_ball_query_planned.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
+    lib.pasnl_ball_query_planned.restype = i
     lib.pasnl_fps_block_planned.argtypes = [p, p, i, i, i, i, i, p]
     lib.pasnl_fps_block_planned.restype = i
     lib.pasnl_flash_fwd_force_splits.argtypes = [i]
@@ -303,6 +387,48 @@ def worker_plans(tree: str) -> None:
     print(json.dumps({"tree": tree, "card": card, "plans": out}))
 
 
+def worker_ball_plans(tree: str) -> None:
+    """The ball query at its two shapes under every plan of the sweep."""
+    _import_tree(tree)
+    import torch
+
+    smoke = _smoke()
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import _build
+    from pointasnl_tpu_torch.ops.geometry import _radius_sq
+
+    dev = torch.device("cuda")
+    lib = _sweep_library()
+    card = smoke.smi("name,power.limit")
+    radius, nsample = smoke.REPULSION_RADIUS, smoke.REPULSION_NSAMPLE
+    l1 = smoke.seg_levels(dev, seed=22)[1]
+    x = smoke.cube(24, 1, smoke.SEG_N, smoke.SEG_SIDE, dev)
+    out = []
+    for path, s, q in (("seg", l1, l1), ("check", x, x[:, ::8].contiguous())):
+        (B, N, _), M = s.shape, q.shape[1]
+        want = geometry.query_ball_point(radius, nsample, s, q)
+        shape = f"B{B} {M}q/{N} ns{nsample} r{radius}"
+        for per_lane in (2, 4, 8):
+            for per_warp in (1, 2, 4, 8):
+                idx = torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
+                cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
+                call = lambda: _build.check(lib.pasnl_ball_query_planned(  # noqa: E731
+                    s.data_ptr(), q.data_ptr(), idx.data_ptr(), cnt.data_ptr(), B, N, M, nsample,
+                    _radius_sq(radius), per_lane, per_warp,
+                    torch.cuda.current_stream().cuda_stream), "ball query kernel (planned)")
+                call()
+                torch.cuda.synchronize()
+                exact = bool(torch.equal(idx, want[0]) and torch.equal(cnt, want[1]))
+                ms = smoke.device_ms(call, "ball_query_kernel")
+                out.append({"kernel": "ball_query", "path": path, "shape": shape,
+                            "per_lane": per_lane, "per_warp": per_warp, "ms": ms,
+                            "exact": exact})
+                print(f"ball_query [{path}] {shape}: {per_lane} points a lane, {per_warp} "
+                      f"queries a warp: {ms} ms on the device{'' if exact else ' NOT EXACT'}  "
+                      f"[{card}]")
+    print(json.dumps({"tree": tree, "card": card, "plans": out}))
+
+
 def worker_big(tree: str) -> None:
     """The flash forward once at 278528q/2228224 C32 D32, by CUDA events."""
     _import_tree(tree)
@@ -326,10 +452,24 @@ def worker_big(tree: str) -> None:
     po, _ = fa.flash_forward_reference(q[:, rows], k, v, scale)
     e = _errors(o[:, rows], po, _ref64(q[:, rows], k, v, scale))
     bnd = smoke.flash_fwd_bound(1, M, N, C, C)
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    del o, lse
+    # F.scaled_dot_product_attention on the same inputs, float32 with TF32
+    # off: the yardstick (library ms), or why it cannot run here.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+    try:
+        library_ms = smoke.time_ms(sdpa, reps=2, warmup=1)
+        so = sdpa()[:, rows]
+        library = {"library_ms": library_ms,
+                   "library_rel_err_on_256_rows": float((so - po).abs().max() / po.abs().max())}
+    except RuntimeError as err:  # out of memory, or no kernel for these inputs
+        torch.cuda.empty_cache()
+        library = {"library_ms": None, "library_error": str(err).splitlines()[0][:300]}
     print(json.dumps({"tree": tree, "shape": f"B1 {M}q/{N} C{C} D{C}", "ms": ms,
                       "bound_ms": bnd[0], "bound_by": bnd[1], "rel_err_on_256_rows": e["o_plain"],
-                      "errors_on_256_rows": e,
-                      "finite": bool(torch.isfinite(o).all() and torch.isfinite(lse).all())}))
+                      "errors_on_256_rows": e, **library, "finite": finite}))
 
 
 def _card() -> str:
@@ -343,7 +483,7 @@ def _run(mode: str, tree: str) -> dict:
     if out.returncode != 0:
         print(out.stdout[-4000:], out.stderr[-4000:], sep="\n")
         raise SystemExit(1)
-    if mode == "plans":
+    if mode in ("plans", "ball_plans"):
         print(out.stdout.strip(), flush=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -353,10 +493,12 @@ def main() -> int:
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--plans", action="store_true", help="one tree's plans side by side")
     ap.add_argument("--big", action="store_true", help="the flash forward at 278528q/2228224")
-    for mode in ("turn", "plans", "big"):
+    ap.add_argument("--ball-plans", action="store_true", help="the ball query's plans")
+    for mode in ("turn", "plans", "big", "ball_plans"):
         ap.add_argument(f"--worker-{mode}", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    for mode, fn in (("turn", worker_turn), ("plans", worker_plans), ("big", worker_big)):
+    for mode, fn in (("turn", worker_turn), ("plans", worker_plans), ("big", worker_big),
+                     ("ball_plans", worker_ball_plans)):
         if getattr(args, f"worker_{mode}"):
             fn(getattr(args, f"worker_{mode}"))
             return 0
@@ -364,6 +506,9 @@ def main() -> int:
     card = _card()
     if args.plans:
         _run("plans", trees[0])
+        return 0
+    if args.ball_plans:
+        _run("ball_plans", trees[0])
         return 0
     if args.big:
         for tree in trees:
@@ -377,6 +522,14 @@ def main() -> int:
                   f"{r['errors_on_256_rows']['plain_64']:.2e}; chip_smoke's limit "
                   f"{'holds' if r['errors_on_256_rows']['holds'] else 'FAILS'}), "
                   f"finite {r['finite']}  [{card}]")
+            if r["library_ms"]:
+                print(f"F.scaled_dot_product_attention at {r['shape']} ({tree}): "
+                      f"{statistics.median(r['library_ms']):.1f} ms a call by CUDA events "
+                      f"({', '.join(f'{x:.1f}' for x in r['library_ms'])}), |o - plain| / max|o| "
+                      f"on 256 rows {r['library_rel_err_on_256_rows']:.2e}  [{card}]")
+            else:
+                print(f"F.scaled_dot_product_attention at {r['shape']}: cannot run here: "
+                      f"{r['library_error']}  [{card}]")
             print(json.dumps({"card": card, **r}))
         return 0
     if len(trees) != 2:
@@ -391,9 +544,10 @@ def main() -> int:
                   f"{r['ms']} ms on the device, {r['call_ms']:.4f} ms a call"
                   + (f", |o - plain| / max|o| {r['rel_err']:.2e}" if "rel_err" in r else ""))
         key = lambda r: (r["kernel"], r["path"], r["shape"])  # noqa: E731
-        first = first or {key(r): r["digest"] for r in rows if r["kernel"] == "fps"}
+        exact = ("fps", "ball_query", "gather_bwd")  # equal across the trees too
+        first = first or {key(r): r["digest"] for r in rows if r["kernel"] in exact}
         mine = firsts.setdefault(tree, {key(r): r["digest"] for r in rows})
-        differ = [r["shape"] for r in rows if (r["kernel"] == "fps" and first[key(r)] != r["digest"])
+        differ = [r["shape"] for r in rows if (r["kernel"] in exact and first[key(r)] != r["digest"])
                   or mine[key(r)] != r["digest"]]
         if differ:
             print(f"turn {turn + 1}, {tree}: results differ from an earlier turn at {differ}")
@@ -409,11 +563,15 @@ def main() -> int:
         row = {"kernel": r["kernel"], "path": r["path"], "shape": r["shape"],
                "ms": [median(a, i, "ms"), median(b, i, "ms")],
                "call_ms": [median(a, i, "call_ms"), median(b, i, "call_ms")]}
+        if "library_ms" in r:
+            row["library_ms"] = [median(a, i, "library_ms"), median(b, i, "library_ms")]
         result["rows"].append(row)
         (ms_a, ms_b), (call_a, call_b) = row["ms"], row["call_ms"]
         ratio = f", {ms_a / ms_b:.2f}x" if ms_a and ms_b else ""
+        lib = (f"; index_add_ {row['library_ms'][0]:.4f} and {row['library_ms'][1]:.4f} ms"
+               if "library_ms" in row else "")
         print(f"{r['kernel']} [{r['path']}] {r['shape']}: {ms_a} ms (A) -> {ms_b} ms (B) on the "
-              f"device{ratio}; a call {call_a:.4f} -> {call_b:.4f} ms  [{card}]")
+              f"device{ratio}; a call {call_a:.4f} -> {call_b:.4f} ms{lib}  [{card}]")
     print(json.dumps(result))
     return 0
 

@@ -374,10 +374,27 @@ def ball_case(case):
     if case == "n10240":
         x = (rng.rand(1, 10240, 3) * 0.5).astype(np.float32)
         return x, x[:, ::8].copy(), 0.07, 20
+    if case == "three tiles":  # the kernel stages 3072 points at a time
+        x = (rng.rand(2, 9001, 3) * 0.5).astype(np.float32)
+        return x, x[:, ::13].copy(), 0.05, 32
+    if case == "hits in the last tile":
+        x = (rng.rand(1, 8192, 3) * 0.5).astype(np.float32)
+        x[0, 8000:] = x[0, 4000]
+        return x, x[:, 3990:4010].copy(), 0.02, 128
+    if case == "nsample 128":
+        x = (rng.rand(2, 700, 3) * 0.5).astype(np.float32)
+        return x, x[:, ::3].copy(), 0.25, 128
+    if case == "ragged M":  # M not a multiple of a block's queries
+        x = (rng.rand(3, 700, 3) * 0.5).astype(np.float32)
+        return x, x[:, :333].copy(), 0.1, 20
+    if case == "every point":  # a ball that holds the whole cloud
+        x = (rng.rand(2, 90, 3) * 0.5).astype(np.float32)
+        return x, x[:, :41].copy(), 10.0, 128
     raise ValueError(case)
 
 
-BALL_CASES = ["l1_xyz", "cluster", "empty", "exactly_r", "ragged", "duplicates", "n10240"]
+BALL_CASES = ["l1_xyz", "cluster", "empty", "exactly_r", "ragged", "duplicates", "n10240",
+              "three tiles", "hits in the last tile", "nsample 128", "ragged M", "every point"]
 
 
 @pytest.mark.parametrize("case", BALL_CASES)
@@ -395,6 +412,10 @@ def test_ball_query_kernel_matches_plain(dev, case):
         assert not bool(got_i.any()) and not bool(got_c.any())
     if case == "exactly_r":
         assert 12 not in got_i.tolist()[0][0]
+    if case == "every point":
+        assert bool((got_c == xyz.shape[1]).all())
+        assert torch.equal(got_i[..., :xyz.shape[1]].long().cpu(),
+                           torch.arange(xyz.shape[1]).expand(*got_i.shape[:2], -1))
 
 
 def _scene(seed, B, N, extent=6.0):
@@ -533,6 +554,7 @@ def test_kernels_refuse_sizes_beyond_their_limits(dev):
 # 3 of them (the FPS samples that adaptive sampling replaces) feed no loss
 # (tests/test_torch_gather.py counts both on the CPU).
 SEG_GATHER_BACKWARDS = 19
+SEG_GATHER_PLANS = 12  # one an index tensor: gathers that share indices share it
 
 # (B, n points, R gathered rows, C) of the gather-backward checks: the seg
 # step's shapes at B4 x 10240, then edge cases.
@@ -572,6 +594,54 @@ def test_gather_backward_kernel_matches_plain_and_index_add(dev, case):
     flat = (idx.long() + torch.arange(B, device=dev)[:, None] * n).reshape(-1).cpu()
     cpu = torch.zeros(B * n, C).index_add_(0, flat, dout.reshape(B * R, C).cpu())
     assert torch.equal(got.cpu(), cpu.view(B, n, C))
+
+
+# (B, n, R, the output rows the indices take or None for all) of plans checked
+# beside GATHER_CASES': the B16 x 10240 recipe's level 1, counters and slots
+# past a block's shared memory (n + R ints), segments long enough for the
+# plan's walk in order.
+PLAN_CASES = {
+    "B16 level 1 grouping": (16, 10240, 1280 * 32, None),
+    "counters past shared memory": (2, 60000, 5000, None),
+    "long and short segments": (2, 9, 5000, None),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES) + list(PLAN_CASES))
+def test_gather_plan_kernel_equals_segments(dev, case):
+    if case in PLAN_CASES:
+        B, n, R, _ = PLAN_CASES[case]
+        rng = np.random.RandomState(sum(map(ord, case)))
+        idx = torch.from_numpy(rng.randint(0, n, (B, R)).astype(np.int32)).to(dev)
+    else:
+        _, idx, n = gather_case(case, dev)
+    before = cuda_gather.plan_launches
+    got = cuda_gather.plan_kernel(idx, n)
+    again = cuda_gather.plan_kernel(idx, n)
+    want = cuda_gather.segments(idx, n)
+    torch.cuda.synchronize()
+    assert cuda_gather.plan_launches - before == 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w) and torch.equal(a, w)
+    if case in ("a row gathered 3000 times", "long and short segments"):
+        assert int(torch.diff(want[1].long()).max()) > cuda_gather.long_len(idx.shape[1])
+
+
+def test_gather_backward_on_the_card_never_calls_segments(dev, monkeypatch):
+    def refuse(idx, n):
+        raise AssertionError("a gather backward on the card called segments")
+
+    monkeypatch.setattr(cuda_gather, "segments", refuse)
+    dout, idx, n = gather_case("level 2 grouping xyz", dev)
+    points = torch.zeros(dout.shape[0], n, dout.shape[2], device=dev, requires_grad=True)
+    before = (cuda_gather.plan_launches, cuda_gather.launches)
+    ops.gather_point(points, idx).backward(dout)
+    torch.cuda.synchronize()
+    assert (cuda_gather.plan_launches - before[0], cuda_gather.launches - before[1]) == (1, 1)
+    flat = (idx.long() + torch.arange(idx.shape[0], device=dev)[:, None] * n).reshape(-1).cpu()
+    cpu = torch.zeros(idx.shape[0] * n, dout.shape[2]).index_add_(
+        0, flat, dout.reshape(-1, dout.shape[2]).cpu())
+    assert torch.equal(points.grad.cpu(), cpu.view_as(points))
 
 
 def test_gathers_with_a_gradient_take_the_kernel(dev):
@@ -641,9 +711,16 @@ def test_cls_forward_launches_each_kernel_twice_a_request(dev):
     assert (cuda_fps.launches - fps0, cuda_knn.launches - knn0) == (2, 2)
 
 
-def test_seg_train_step_and_forward_launch_counts(dev):
+def test_seg_train_step_and_forward_launch_counts(dev, monkeypatch):
     """A seg train step launches FPS 4, kNN 7 + 4 (three_nn) and the ball
-    query 1 time; the serve forward the same minus the ball query."""
+    query 1 time, the gather backward 19 times on 12 plans, and never calls
+    segments (a stub raises); the serve forward the same minus the ball
+    query and the gathers' kernels."""
+
+    def refuse(idx, n):
+        raise AssertionError("a gather backward on the card called segments")
+
+    monkeypatch.setattr(cuda_gather, "segments", refuse)
     model = PointASNLSemSegRes(21, generator=torch.Generator().manual_seed(0), device=dev)
     state = TrainState(model, make_optimizer("adam", staircase_lr_schedule(1e-3, 2, 200000, 0.7),
                                              model.parameters()))
@@ -653,11 +730,12 @@ def test_seg_train_step_and_forward_launch_counts(dev):
     batch = {"points": torch.from_numpy((rng.rand(2, 2048, 3) * 0.5).astype(np.float32)).to(dev),
              "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
              "smpw": torch.ones(2, 2048, device=dev)}
-    before, g0 = _counts(), cuda_gather.launches
+    before, g0, p0 = _counts(), cuda_gather.launches, cuda_gather.plan_launches
     metrics = step(state, batch)
     torch.cuda.synchronize()
     assert _launched(before) == (4, 11, 0, 1, 0)
     assert cuda_gather.launches - g0 == SEG_GATHER_BACKWARDS
+    assert cuda_gather.plan_launches - p0 == SEG_GATHER_PLANS
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     before, g0 = _counts(), cuda_gather.launches
     logits = make_inference_fn(model)(batch["points"])

@@ -31,6 +31,7 @@ from test_torch_train import (
     check_loss_terms,
     jax_step,
     port_step,
+    shared_jax_step,
 )
 
 from pointasnl_tpu.models import PointASNLCls as JaxCls
@@ -263,7 +264,7 @@ def test_seg_eval_forward_with_flash_matches_jax():
 
 
 @pytest.fixture(scope="module")
-def flash_steps():
+def flash_steps(tmp_path_factory):
     """One float64 seg train step under nl_use_flash in both packages, JAX's
     traced inside the interpret-mode context (a jitted trace outside it
     fails on the CPU, so the step ran the Pallas kernels interpreted), and
@@ -283,7 +284,7 @@ def flash_steps():
         jax.jit(jfa.flash_attention)(q, q, q)  # the context reaches a jitted trace
         with x64_everywhere():
             flash = jax_step(nl_use_flash=True)
-    return (flash, *port_step(nl_use_flash=True)), jax_step()
+    return (flash, *port_step(nl_use_flash=True)), shared_jax_step(tmp_path_factory)
 
 
 def test_seg_flash_train_step_loss_terms_match_jax(flash_steps):

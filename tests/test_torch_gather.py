@@ -8,14 +8,23 @@ its wiring, on the CPU.
   scatter-add adds the updates in the same order); within 1e-4 of the scale
   of ``pointasnl_tpu/ops/scatter.py``'s one-hot-matmul VJP, whose default
   "split2" precision is ~1.5e-5 relative (tests/test_scatter.py's bound).
+- The plan kernel's algorithm (``ops/cuda/gather_backward.py:emulate``: counts,
+  their scan, a fill in the order the atomics hand out slots, each segment
+  put in ascending row order) equal to ``segments``, its plain version, in
+  any fill order: on every case, a row gathered 3000 times and rows never
+  gathered.
 - The wiring: in a small seg train step every gather of a tensor that needs
   a gradient goes through ``ops.dispatch.gather_point``, which sends it to
   the kernel on the card: a counting stub in its place sees all 22, and no
   differentiable ``torch.gather`` runs outside it.
 
-The kernel itself is held against the plain version and ``index_add_`` on
-the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+The kernels themselves are held against the plain versions and
+``index_add_`` on the card by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -93,6 +102,47 @@ def test_segments_sort_each_output_row_s_sources_in_order():
     assert offsets.tolist() == [0, 1, 2, 5, 5, 8, 8, 8, 10]
 
 
+# (B, n, R, output rows the indices take) of the plan's cases beside CASES:
+# long segments take the plan kernel's walk in order (past long_len rows).
+PLAN_CASES = {
+    "a row gathered 3000 times": (2, 5, 3000, (0, 3)),
+    "rows never gathered": (3, 40, 30, (2, 5, 7, 39)),
+    "long and short segments, R 5000": (2, 9, 5000, tuple(range(9))),
+}
+WALKED = {"a row gathered 3000 times", "long and short segments, R 5000"}
+
+
+def _plan_case(name):
+    if name in CASES:
+        _, idx, _ = _case(name)
+        return torch.from_numpy(idx).reshape(idx.shape[0], -1), CASES[name][1]
+    B, n, R, rows = PLAN_CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    return torch.from_numpy(np.asarray(rows, np.int32)[rng.randint(0, len(rows), (B, R))]), n
+
+
+@pytest.mark.parametrize("name", list(CASES) + list(PLAN_CASES))
+def test_plan_kernel_algorithm_equals_segments_in_any_fill_order(name):
+    idx, n = _plan_case(name)
+    B, R = idx.shape
+    want = cuda_gather.segments(idx, n)
+    if name in WALKED:
+        assert int(torch.diff(want[1].long()).max()) > cuda_gather.long_len(R)
+    for slots in (None, torch.arange(R).repeat(B, 1), torch.arange(R - 1, -1, -1).repeat(B, 1)):
+        got = cuda_gather.emulate(idx, n, slots)
+        assert got[0].dtype == got[1].dtype == torch.int32
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_plan_constants_mirror_the_kernel():
+    src = (Path(cuda_gather.__file__).parents[2] / "csrc" / "gather_backward.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kLongList"]) == cuda_gather.PLAN_LONG_LIST
+    assert int(consts["kLongMin"]) == cuda_gather.PLAN_LONG_MIN
+    assert int(consts["kPlanThreads"]) == cuda_gather.PLAN_THREADS
+    assert cuda_gather.long_len(40960) == 512 and cuda_gather.long_len(2 ** 20) == 4096
+
+
 def test_plan_sorts_an_index_tensor_once_for_all_its_views():
     idx = torch.tensor([[[2, 0], [2, 1]], [[2, 0], [3, 3]]])
     first = cuda_gather.plan(idx.reshape(2, 4), 4)
@@ -117,6 +167,8 @@ def test_cpu_gathers_stay_plain_and_the_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_gather.gather_backward(torch.from_numpy(dout).reshape(2, -1, 6),
                                     torch.from_numpy(idx).reshape(2, -1), points.shape[1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_gather.plan_kernel(torch.from_numpy(idx).reshape(2, -1), points.shape[1])
 
 
 def test_every_differentiable_gather_of_a_seg_step_goes_through_dispatch(monkeypatch):

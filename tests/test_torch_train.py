@@ -24,6 +24,9 @@ the ball query and the IDW weights in float32, so the tolerances are:
   1e5 times their size): 1e-6 absolute.
 """
 
+import os
+import pickle
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,10 +111,29 @@ def port_step(**model_kwargs):
     return tstate, tmetrics, tbatch, sd
 
 
+def shared_jax_step(tmp_path_factory):
+    """jax_step() once a test session, for every module that holds the port
+    to it (this one, and test_torch_flash.py's yardstick): the first to need
+    it computes it and leaves it in the session's base temp directory, which
+    pytest-xdist's workers share; a module that finds it there loads it. Two
+    that need it at once both compute it."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # the session's, above each worker's own
+    path = base / "jax_seg_train_step_float64.pkl"
+    if path.exists():
+        return pickle.loads(path.read_bytes())
+    out = jax_step()
+    tmp = path.with_name(f"{path.name}.{os.getpid()}")
+    tmp.write_bytes(pickle.dumps(out))
+    os.replace(tmp, path)
+    return out
+
+
 @pytest.fixture(scope="module")
-def steps():
+def steps(tmp_path_factory):
     """The JAX step's outputs and the port's state after its step."""
-    return (jax_step(), *port_step())
+    return (shared_jax_step(tmp_path_factory), *port_step())
 
 
 # With a second JAX run `ref` (its outputs as jax_step returns them), each
