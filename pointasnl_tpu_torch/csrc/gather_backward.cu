@@ -8,7 +8,8 @@
 // Pallas kernel. The port had taken autograd's scatter-add for
 // torch.gather, whose atomics add in an order that changes from run to run.
 //
-// Three kernels. The plan (gather_plan_kernel, then gather_rank_kernel)
+// Three kernels (the sum in two instantiations, float32 and bfloat16
+// cotangents). The plan (gather_plan_kernel, then gather_rank_kernel)
 // turns the indices idx (B, R) int32 into the segments: order (B * R) int32,
 // the rows b * R + r sorted stably by their output row b * N + idx[b, r], and
 // offsets (B * N + 1) int32, the segment of output row i being order[offsets[i]
@@ -19,7 +20,13 @@
 //   ((0.0f + dout[order[s]]) + dout[order[s + 1]]) + ...
 // each addition rounded on its own, in ascending r: the order in which CPU
 // float32 index_add_ adds, so the two agree to the bit. The sum has no
-// atomics: each output element is written by one thread, once.
+// atomics: each output element is written by one thread, once. Bfloat16
+// cotangents (a bfloat16 train step's) are added the same way in a float32
+// accumulator, and the sum is rounded to bfloat16 once, to nearest even:
+// float32 index_add_ of the widened rows, rounded, to the bit. (The TPU
+// package adds bfloat16 cotangents in bfloat16 across its chunks; this is
+// the more exact sum of the same rows.) A bfloat16 sum moves half the float32
+// one's bytes.
 //
 // The plan is a counting sort. Its first launch takes one block a cloud (a
 // segment never leaves its cloud: offsets[b * N] = b * R): the block counts
@@ -52,6 +59,7 @@
 // slots' copy out is coalesced); the ranking of a larger cloud on every SM,
 // a row a thread, neighbouring rows sharing their segment's reads.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -242,9 +250,22 @@ gather_rank_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ 
   order[base + s + rank] = base + v;
 }
 
+// The element types of the sum: float32 as it is, bfloat16 widened to float32
+// exactly on the way in and rounded to nearest even once on the way out.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// One instantiation a dtype, one order of additions for both: the float32
+// accumulator starts at 0.0 and adds the segment's rows in ascending r.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gather_backward_kernel(const float* __restrict__ dout, const int32_t* __restrict__ order,
-                       const int32_t* __restrict__ offsets, float* __restrict__ dpoints,
+gather_backward_kernel(const T* __restrict__ dout, const int32_t* __restrict__ order,
+                       const int32_t* __restrict__ offsets, T* __restrict__ dpoints,
                        long long elements, int c) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < elements;
@@ -254,8 +275,8 @@ gather_backward_kernel(const float* __restrict__ dout, const int32_t* __restrict
     const int end = offsets[row + 1];
     float acc = 0.0f;
     for (int s = offsets[row]; s < end; ++s)
-      acc = __fadd_rn(acc, dout[(size_t)order[s] * c + ch]);
-    dpoints[e] = acc;
+      acc = __fadd_rn(acc, widen(dout[(size_t)order[s] * c + ch]));
+    dpoints[e] = narrow<T>(acc);
   }
 }
 
@@ -321,16 +342,33 @@ int pasnl_gather_plan(const void* idx, void* order, void* offsets, void* scratch
   return (int)cudaGetLastError();
 }
 
-int pasnl_gather_backward(const void* dout, const void* order, const void* offsets,
-                          void* dpoints, long long rows, int c, void* stream) {
+}  // extern "C"
+
+template <typename T>
+static int launch_gather_backward(const void* dout, const void* order, const void* offsets,
+                                  void* dpoints, long long rows, int c, void* stream) {
   if (rows < 1 || c < 1) return (int)cudaErrorInvalidValue;
   const long long elements = rows * c;
   const long long want = (elements + kThreads - 1) / kThreads;
   const int blocks = (int)(want < 132LL * 64 ? want : 132LL * 64);
-  gather_backward_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)dout, (const int32_t*)order, (const int32_t*)offsets, (float*)dpoints,
-      elements, c);
+  gather_backward_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)dout, (const int32_t*)order, (const int32_t*)offsets, (T*)dpoints, elements, c);
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// The sum of float32 cotangents.
+int pasnl_gather_backward(const void* dout, const void* order, const void* offsets,
+                          void* dpoints, long long rows, int c, void* stream) {
+  return launch_gather_backward<float>(dout, order, offsets, dpoints, rows, c, stream);
+}
+
+// The sum of bfloat16 cotangents: float32 additions in the same order, the
+// result rounded to bfloat16 once.
+int pasnl_gather_backward_bf16(const void* dout, const void* order, const void* offsets,
+                               void* dpoints, long long rows, int c, void* stream) {
+  return launch_gather_backward<__nv_bfloat16>(dout, order, offsets, dpoints, rows, c, stream);
 }
 
 }  // extern "C"

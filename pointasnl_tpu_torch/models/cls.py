@@ -52,8 +52,11 @@ class PointASNLCls(nn.Module):
         self.fc3 = FullyConnected(256, num_class, bn=False, activation=None, generator=g)
         place(self, device)
 
-    def forward(self, point_cloud: torch.Tensor, bn_momentum=0.9
+    def forward(self, point_cloud: torch.Tensor, bn_momentum=0.9, *,
+                dropout_generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """In train mode the two dropouts draw their masks from
+        `dropout_generator`, dp1's first (flax's ``dropout`` key)."""
         end_points: Dict[str, torch.Tensor] = {}
         if self.use_normal:
             l0_xyz = point_cloud[..., :3]
@@ -72,7 +75,7 @@ class PointASNLCls(nn.Module):
 
         B = point_cloud.shape[0]
         net = torch.cat([l3_points.reshape(B, -1), l3_points_res.reshape(B, -1)], dim=-1)
-        net = self.dp1(self.fc1(net, bn_momentum=bn_momentum))
-        net = self.dp2(self.fc2(net, bn_momentum=bn_momentum))
+        net = self.dp1(self.fc1(net, bn_momentum=bn_momentum), dropout_generator)
+        net = self.dp2(self.fc2(net, bn_momentum=bn_momentum), dropout_generator)
         net = self.fc3(net, bn_momentum=bn_momentum)
         return net, end_points

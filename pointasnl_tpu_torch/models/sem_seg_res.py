@@ -79,8 +79,11 @@ class PointASNLSemSegRes(nn.Module):
         self.fc0 = PointConv(128, num_class, bn=False, activation=None, generator=g)
         place(self, device)
 
-    def forward(self, point_cloud: torch.Tensor, bn_momentum=0.9
+    def forward(self, point_cloud: torch.Tensor, bn_momentum=0.9, *,
+                dropout_generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """In train mode the head dropout draws its mask from
+        `dropout_generator` (flax's ``dropout`` key)."""
         end_points: Dict[str, torch.Tensor] = {}
         num_point = point_cloud.shape[1]
         if self.feature_channel > 0:
@@ -134,6 +137,6 @@ class PointASNLSemSegRes(nn.Module):
 
         net = self.fc1(l0_points, bn_momentum=m)
         end_points["feats"] = net
-        net = self.dp(net)
+        net = self.dp(net, dropout_generator)
         net = self.fc0(net, bn_momentum=m)
         return net, end_points

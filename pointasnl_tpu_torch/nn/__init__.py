@@ -1,6 +1,12 @@
 """PyTorch module library: TF-layer equivalents + the PointASNL / PointNet++ cells."""
 
+from pointasnl_tpu_torch.nn import precision
 from pointasnl_tpu_torch.nn.layers import BatchNorm, Dense, Dropout, FullyConnected, PointConv
+from pointasnl_tpu_torch.nn.losses import (
+    l2_regularization,
+    softmax_cross_entropy,
+    weighted_softmax_cross_entropy,
+)
 from pointasnl_tpu_torch.nn.pointasnl import (
     AdaptiveSampling,
     PointASNLSetAbstraction,
@@ -23,5 +29,9 @@ __all__ = [
     "PointNonLocalCell",
     "SampleWeights",
     "WeightNetHidden",
+    "l2_regularization",
+    "precision",
     "sample_and_group_all",
+    "softmax_cross_entropy",
+    "weighted_softmax_cross_entropy",
 ]

@@ -16,6 +16,11 @@
   ``torch.Generator``: Xavier-uniform kernels, zero biases, BN 1/0/0/1.
 - Train or eval mode is the module's ``training`` flag (``.train()`` /
   ``.eval()``), where flax passes ``training=`` to each call.
+- ``Dense`` computes in the dtype of ``nn.precision``, as the JAX package
+  passes it to flax's ``Dense(dtype=...)``: in bfloat16 the input and the
+  float32 weight are cast to bfloat16 and the output is bfloat16.
+- ``Dropout`` draws its mask from the ``torch.Generator`` the caller passes,
+  as flax draws it from the ``dropout`` key, never from a global RNG.
 """
 
 from __future__ import annotations
@@ -27,11 +32,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointasnl_tpu_torch.nn import precision
+
 Activation = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 class Dense(nn.Module):
-    """x @ weight.T (+ bias) with a Xavier-uniform weight, like flax's Dense."""
+    """x @ weight.T (+ bias) with a Xavier-uniform weight, like flax's Dense.
+
+    It computes in the compute dtype of ``nn.precision``, else in the
+    promotion of the input's and the weight's dtypes (flax's
+    ``dtype=None``); the parameters keep their own dtype."""
 
     def __init__(self, in_features: int, features: int, *, use_bias: bool = True,
                  generator: Optional[torch.Generator] = None):
@@ -42,7 +53,10 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        dtype = (precision.current_compute_dtype()
+                 or torch.promote_types(x.dtype, self.weight.dtype))
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class BatchNorm(nn.Module):
@@ -75,14 +89,35 @@ class BatchNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout with the reference's keep_prob convention (tf_util.py:594)."""
+    """Dropout with the reference's keep_prob convention (tf_util.py:594),
+    as flax's: in train mode each element is kept with probability
+    keep_prob (a uniform draw below it) and scaled by 1 / keep_prob, else 0.
+
+    The mask is drawn on the device of `generator`, the only source of its
+    randomness, then moved to x's: the same generator state gives the same
+    mask on any device. Train mode with keep_prob < 1 needs a generator, as
+    flax needs a ``dropout`` key; eval mode, or keep_prob 1, returns x."""
 
     def __init__(self, keep_prob: float = 0.5):
         super().__init__()
         self.keep_prob = keep_prob
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.dropout(x, p=1.0 - self.keep_prob, training=self.training)
+    def keep_mask(self, shape, generator: torch.Generator) -> torch.Tensor:
+        """Bernoulli(keep_prob) draws of `shape`, as a bool tensor on the
+        generator's device."""
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return u < self.keep_prob
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        rate = 1.0 - self.keep_prob
+        if not self.training or rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout in train mode draws its mask from a generator: pass one "
+                             "(the train step takes it as dropout_rng)")
+        keep = self.keep_mask(x.shape, generator).to(x.device)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PointConv(nn.Module):

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointasnl_tpu_torch import ops
-from pointasnl_tpu_torch.nn.blockwise import attention_scale, blockwise_attention
+from pointasnl_tpu_torch.nn.blockwise import blockwise_attention, promoted_einsum, scale_scores
 from pointasnl_tpu_torch.nn.layers import PointConv
 from pointasnl_tpu_torch.ops.flash_attention import flash_attention
 
@@ -62,7 +62,6 @@ class SampleWeights(nn.Module):
         super().__init__()
         self.scaled = scaled
         self.bottleneck = max(32, in_channels // 2)
-        self.scale = attention_scale(self.bottleneck)
         feats = 3 + in_channels
         self.conv_kv_ds = PointConv(feats, self.bottleneck * 2, bn=bn, activation=None,
                                     generator=generator)
@@ -87,10 +86,10 @@ class SampleWeights(nn.Module):
         v = kv[..., self.bottleneck:]
 
         attn = torch.einsum("bmkc,bmlc->bmkl", q, k)  # (B, M, K, K)
-        if self.scaled:
-            attn = attn / self.scale
+        if self.scaled:  # bfloat16 scores promote to float32 here, as in JAX
+            attn = scale_scores(attn, self.bottleneck)
         attn = torch.softmax(attn, dim=-1)
-        out = torch.einsum("bmkl,bmlc->bmkc", attn, v)
+        out = promoted_einsum("bmkl,bmlc->bmkc", attn, v)
         for conv in self.mlp2:
             out = conv(out, bn_momentum=bn_momentum)
         return torch.softmax(out, dim=2)  # convex weights over neighbours
@@ -145,7 +144,6 @@ class PointNonLocalCell(nn.Module):
         self.scaled = scaled
         self.kv_block_size = kv_block_size
         self.use_flash = use_flash
-        self.scale = attention_scale(bottleneck)
         self.conv_kv = PointConv(in_channels, bottleneck * 2, bn=bn, activation=None,
                                  generator=generator)
         self.conv_query = PointConv(query_channels, bottleneck, bn=bn, activation=None,
@@ -166,10 +164,10 @@ class PointNonLocalCell(nn.Module):
             out = flash_attention(q, k, v, self.scaled)
             return self.conv_back_project(out, bn_momentum=bn_momentum)
         attn = torch.einsum("bmc,bnc->bmn", q, k)
-        if self.scaled:
-            attn = attn / self.scale
+        if self.scaled:  # bfloat16 scores promote to float32 here, as in JAX
+            attn = scale_scores(attn, self.bottleneck)
         attn = torch.softmax(attn, dim=-1)
-        out = torch.einsum("bmn,bnc->bmc", attn, v)
+        out = promoted_einsum("bmn,bnc->bmc", attn, v)
         return self.conv_back_project(out, bn_momentum=bn_momentum)
 
 
@@ -266,7 +264,7 @@ class PointASNLSetAbstraction(nn.Module):
 
         # PointConv-style aggregation over the learned xyz kernel.
         weight = self.weight_net(grouped_xyz, bn_momentum=bn_momentum)  # (B, M, K, 32)
-        new_point = torch.einsum("bmkc,bmkw->bmcw", new_point, weight)  # (B, M, C', 32)
+        new_point = promoted_einsum("bmkc,bmkw->bmcw", new_point, weight)  # (B, M, C', 32)
         new_point = new_point.reshape(*new_point.shape[:2], -1)
         new_point = self.after_conv(new_point, bn_momentum=bn_momentum)
 

@@ -85,8 +85,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("pasnl_flash_fwd_scratch", "pasnl_flash_bwd_scratch"):
         getattr(lib, name).argtypes = [i, i, i, i, i]
         getattr(lib, name).restype = ctypes.c_longlong
-    lib.pasnl_gather_backward.argtypes = [p, p, p, p, ctypes.c_longlong, i, p]
-    lib.pasnl_gather_backward.restype = i
+    for name in ("pasnl_gather_backward", "pasnl_gather_backward_bf16"):
+        getattr(lib, name).argtypes = [p, p, p, p, ctypes.c_longlong, i, p]
+        getattr(lib, name).restype = i
     lib.pasnl_gather_plan.argtypes = [p, p, p, p, i, i, i, p]
     lib.pasnl_gather_plan.restype = i
     lib.pasnl_gather_plan_scratch.argtypes = [i, i, i]

@@ -12,6 +12,11 @@ each segment in ascending row order from 0.0, as CPU float32 ``index_add_``
 does, so the gradient is the same to the bit from run to run and against the
 CPU.
 
+The sum takes float32 or bfloat16 cotangents and returns their dtype. A
+bfloat16 one is added in float32, in the same order, and rounded to
+bfloat16 once: float32 ``index_add_`` of the widened rows, rounded, to the
+bit.
+
 ``segments`` is the plan's plain version (a stable sort, for CPU tensors and
 the tests), ``emulate`` runs the plan kernel's algorithm in plain PyTorch for
 the CPU tests, and ``gather_backward_reference`` is the sum's plain version:
@@ -32,7 +37,8 @@ MAX_ROWS = 2 ** 31 - 1  # gathered rows and output rows index int32 segments
 PLAN_LONG_LIST, PLAN_LONG_MIN = 256, 512
 PLAN_THREADS = 1024  # the plan's block, one a cloud: its walk takes 1024 rows at a time
 
-launches = 0  # sum kernel launches made by this process
+launches = 0  # float32 sum kernel launches made by this process
+bf16_launches = 0  # bfloat16 sum kernel launches made by this process
 plan_launches = 0  # plans made on the card by this process (two kernel launches each)
 
 
@@ -166,31 +172,38 @@ def plan(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def gather_backward_reference(dout: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """dPoints (B, n, C) of a gather of idx (B, R) from (B, n, C) points, for
     the upstream gradient dout (B, R, C), on any device: each output row
-    adds its segment's rows in ascending r, starting from 0."""
+    adds its segment's rows in ascending r, starting from 0, in dout's
+    dtype, or for bfloat16 in float32 and rounded to bfloat16 once."""
     B, R, C = dout.shape
     order, offsets = segments(idx, n)
     order, offsets = order.long(), offsets.long()
     counts = offsets[1:] - offsets[:-1]
-    rows_in = dout.reshape(B * R, C)
-    out = dout.new_zeros(B * n, C)
+    acc = torch.float32 if dout.dtype == torch.bfloat16 else dout.dtype
+    rows_in = dout.reshape(B * R, C).to(acc)
+    out = rows_in.new_zeros(B * n, C)
     for r in range(int(counts.max()) if counts.numel() else 0):
         rows = torch.nonzero(counts > r).squeeze(1)  # each output row at most once
         out[rows] = out[rows] + rows_in[order[offsets[rows] + r]]
-    return out.view(B, n, C)
+    return out.to(dout.dtype).view(B, n, C)
+
+
+# The sum kernel's entry point for each dtype it takes.
+_ENTRY = {torch.float32: "pasnl_gather_backward", torch.bfloat16: "pasnl_gather_backward_bf16"}
 
 
 def gather_backward(dout: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """The sum kernel: dPoints (B, n, C) float32 of a gather of idx (B, R) from
-    (B, n, C) points, for the upstream gradient dout (B, R, C) float32."""
-    global launches
-    if not dout.is_cuda or dout.dtype != torch.float32 or dout.dim() != 3:
-        raise ValueError(f"gather backward kernel takes dout as a (B, R, C) float32 CUDA "
-                         f"tensor, got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    """The sum kernel: dPoints (B, n, C) of a gather of idx (B, R) from
+    (B, n, C) points, for the upstream gradient dout (B, R, C), float32 or
+    bfloat16, in dout's dtype."""
+    global launches, bf16_launches
+    if not dout.is_cuda or dout.dtype not in _ENTRY or dout.dim() != 3:
+        raise ValueError(f"gather backward kernel takes dout as a (B, R, C) float32 or bfloat16 "
+                         f"CUDA tensor, got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
     B, R, C = dout.shape
     if tuple(idx.shape) != (B, R) or idx.device != dout.device or idx.is_floating_point():
         raise ValueError(f"gather backward kernel takes idx as a ({B}, {R}) integer tensor on "
                          f"{dout.device}, got {tuple(idx.shape)} {idx.dtype} on {idx.device}")
-    out = torch.empty((B, n, C), dtype=torch.float32, device=dout.device)
+    out = torch.empty((B, n, C), dtype=dout.dtype, device=dout.device)
     if B == 0 or n == 0 or C == 0:
         return out
     if R == 0:
@@ -200,8 +213,11 @@ def gather_backward(dout: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tens
     lib = _build.library()
     with torch.cuda.device(dout.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.pasnl_gather_backward(dout.data_ptr(), order.data_ptr(),
-                                               offsets.data_ptr(), out.data_ptr(), B * n, C,
-                                               stream), "gather backward kernel")
-    launches += 1
+        entry = getattr(lib, _ENTRY[dout.dtype])
+        _build.check(entry(dout.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                           B * n, C, stream), "gather backward kernel")
+    if dout.dtype == torch.float32:
+        launches += 1
+    else:
+        bf16_launches += 1
     return out

@@ -21,6 +21,12 @@ the kernels through the routed FPS, kNN, ball query and gathers, passed to
 the plain helpers as the JAX package passes ``group_point_fn``; ``three_nn``
 is the kNN kernel with k = 3 (its padding for fewer than 3 points stays in
 ``geometry.three_nn``, on the kernel's output).
+
+The searches (FPS, the kNNs, the ball query) take float32 xyz, as the JAX
+package casts it (``ops/geometry.py``): on the card another dtype is cast
+before the kernel, as the plain versions cast it on the CPU. The gathers
+keep the points' dtype, and their backward sums float32 or bfloat16
+cotangents (the bfloat16 step's) on the card.
 """
 
 from __future__ import annotations
@@ -52,7 +58,9 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
 
 
 class GatherPoint(torch.autograd.Function):
-    """gather_point with the gather-backward kernel as its backward."""
+    """gather_point with the gather-backward kernel as its backward: the
+    cotangent, float32 or bfloat16, goes to the kernel, and the gradient
+    comes back in its dtype, the points'."""
 
     @staticmethod
     def forward(ctx, points, idx):
@@ -92,7 +100,7 @@ def three_interpolate(points, idx, weight):
 
 def farthest_point_sample(npoint, xyz):
     if _on_cuda(xyz, "farthest_point_sample"):
-        return _cuda_fps.farthest_point_sample(npoint, xyz)
+        return _cuda_fps.farthest_point_sample(npoint, xyz.float())
     return _g.farthest_point_sample(npoint, xyz)
 
 
@@ -128,6 +136,10 @@ def knn_route(n: int, k: int) -> str:
 def knn_point(k, support, query):
     if not _on_cuda(support, "knn_point"):
         return _g.knn_point(k, support, query)
+    # A self-query stays one tensor: the spatial wrapper sees `query is support`.
+    same = query is support
+    support = support.float()
+    query = support if same else query.float()
     route = knn_route(support.shape[1], k)
     if route == "resident":
         return _cuda_knn.knn_point(k, support, query)
@@ -142,7 +154,7 @@ knn_point.__doc__ = _g.knn_point.__doc__
 
 def query_ball_point(radius, nsample, xyz, new_xyz):
     if _on_cuda(xyz, "query_ball_point"):
-        return _cuda_ball.query_ball_point(radius, nsample, xyz, new_xyz)
+        return _cuda_ball.query_ball_point(radius, nsample, xyz.float(), new_xyz.float())
     return _g.query_ball_point(radius, nsample, xyz, new_xyz)
 
 

@@ -19,10 +19,14 @@ import torch
 
 
 def make_inference_fn(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Put `model` in eval mode and return points -> logits."""
+    """Put `model` in eval mode and return points -> logits, each call in
+    eval mode, as JAX passes ``training=False`` to each call: a train step
+    between two requests puts the model in train mode, and the next request
+    puts it back."""
     model.eval()
 
     def infer(points: torch.Tensor) -> torch.Tensor:
+        model.eval()
         with torch.inference_mode():
             logits, _ = model(points)
         return logits

@@ -46,3 +46,12 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+
+def create_train_state(model: nn.Module, *, optimizer: str = "adam",
+                       lr_schedule: Callable[[int], float], momentum: float = 0.9) -> TrainState:
+    """A TrainState at step 0 around `model`, whose parameters were
+    initialised when it was built (where the JAX package's counterpart runs
+    flax's init), with the optimizer `optimizer` of make_optimizer."""
+    return TrainState(model, make_optimizer(optimizer, lr_schedule, model.parameters(),
+                                            momentum=momentum))

@@ -5,11 +5,16 @@ A train step is the reference's one sess.run (train.py:246-248): forward in
 train mode with the scheduled BN momentum, loss, backward, optimizer update
 and BN statistics update. It runs on the model's device; the batch lies
 there too. The gradients stay in each parameter's ``.grad`` after the step.
+
+Dropout draws from the generator the caller passes, folded with the step as
+JAX folds its ``dropout_rng`` (``fold_in(dropout_rng, state.step)``): the
+masks of a step depend only on the generator's seed and the global step, so
+a run restored from a checkpoint draws the masks the uninterrupted run drew.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -28,14 +33,19 @@ def make_train_step(*, bn_schedule: Callable[[int], float], task: str = "cls",
     The metrics are 0-d tensors on the device (no synchronisation): loss,
     classify_loss, uniform_loss, reg_loss and accuracy.
     """
-    if task not in ("cls", "seg"):
-        raise ValueError(f"unknown task {task!r}")
+    _check_task(task)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   dropout_rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """`dropout_rng`: the generator whose seed, folded with the step,
+        draws the dropout masks (``fold_in``), on its own device; a model
+        with an active dropout raises without it."""
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        logits, end_points = model(batch["points"], bn_momentum=bn_schedule(state.step))
+        gen = None if dropout_rng is None else fold_in(dropout_rng, state.step)
+        logits, end_points = model(batch["points"], bn_momentum=bn_schedule(state.step),
+                                   dropout_generator=gen)
         if task == "cls":
             loss, aux = classification_loss(
                 logits, batch["labels"], model, l1_xyz=end_points["l1_xyz"],
@@ -56,12 +66,39 @@ def make_train_step(*, bn_schedule: Callable[[int], float], task: str = "cls",
     return train_step
 
 
+def _check_task(task: str) -> None:
+    if task not in ("cls", "seg"):
+        raise ValueError(f"unknown task {task!r}")
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """splitmix64's finaliser: a bijection of 64-bit integers."""
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
+    """A new generator on `generator`'s device, seeded from its seed
+    (``initial_seed``) and `data`, as ``jax.random.fold_in`` derives a key
+    from a key and an integer: a function of the two only, not of what the
+    generator has drawn since it was seeded."""
+    seed = _mix64((_mix64(generator.initial_seed() & _MASK64) + data) & _MASK64)
+    return torch.Generator(device=generator.device).manual_seed(seed >> 1)
+
+
 def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(dim=-1) == labels).float().mean()
 
 
-def make_eval_step():
-    """Eval step: (state, batch) -> (logits, {'accuracy'}), eval mode, no grad."""
+def make_eval_step(*, task: str = "cls"):
+    """Eval step: (state, batch) -> (logits, {'accuracy'}), eval mode, no
+    grad. `task` ('cls' or 'seg') is checked as make_train_step checks it;
+    the step is the same for both."""
+    _check_task(task)
 
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -15,6 +15,7 @@ its turns, and one JSON line.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -58,14 +59,17 @@ def worker(root: str, flash: bool) -> None:
             "points": torch.from_numpy((rng.rand(B, N, 3) * SIDE).astype(np.float32)).to(dev),
             "labels": torch.from_numpy(rng.randint(0, CLASSES, (B, N))).to(dev),
             "smpw": torch.ones(B, N, device=dev)})
+    # The dropout masks' generator, where the tree's step takes one.
+    extra = ((torch.Generator(device=dev).manual_seed(0),)
+             if "dropout_rng" in inspect.signature(step).parameters else ())
     for i in range(WARMUP):
-        step(state, batches[i % BATCHES])
+        step(state, batches[i % BATCHES], *extra)
     torch.cuda.synchronize()
     ms = []
     for i in range(STEPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        step(state, batches[i % BATCHES])
+        step(state, batches[i % BATCHES], *extra)
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))

@@ -662,6 +662,71 @@ def test_gathers_with_a_gradient_take_the_kernel(dev):
     assert cuda_gather.launches - before == 1
 
 
+# (B, n points, R gathered rows, C) of the bfloat16 sum's checks: a row
+# gathered 3000 times, the seg step's level-1 grouping at B4 and at the
+# B16 x 10240 recipe, the decoder's widest.
+BF16_GATHER_CASES = {
+    "a row gathered 3000 times": (2, 5, 3000, 32),
+    "level 1 grouping C32": (4, 10240, 1280 * 32, 32),
+    "B16 level 1 grouping C32": (16, 10240, 1280 * 32, 32),
+    "three_interpolate C512": (4, 40, 80 * 3, 512),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_GATHER_CASES))
+def test_bf16_gather_backward_kernel_equals_plain(dev, case):
+    """The bfloat16 sum: float32 additions in the plan's order, rounded once,
+    equal to the bit to its plain version and to CPU float32 index_add_ of
+    the widened rows, rounded; counted apart from the float32 sum."""
+    B, n, R, C = BF16_GATHER_CASES[case]
+    rng = np.random.RandomState(sum(map(ord, case)))
+    rows = rng.randint(0, 2, (B, R)) * 3 if case.startswith("a row") else rng.randint(0, n, (B, R))
+    idx = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    dout = torch.from_numpy(rng.randn(B, R, C).astype(np.float32)).to(dev).bfloat16()
+    before = (cuda_gather.launches, cuda_gather.bf16_launches)
+    got = cuda_gather.gather_backward(dout, idx, n)
+    again = cuda_gather.gather_backward(dout, idx, n)
+    want = cuda_gather.gather_backward_reference(dout, idx, n)
+    torch.cuda.synchronize()
+    assert (cuda_gather.launches - before[0], cuda_gather.bf16_launches - before[1]) == (0, 2)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, n, C)
+    assert torch.equal(got, again) and torch.equal(got, want)
+    flat = (idx.long() + torch.arange(B, device=dev)[:, None] * n).reshape(-1).cpu()
+    cpu = torch.zeros(B * n, C).index_add_(0, flat, dout.float().reshape(B * R, C).cpu())
+    assert torch.equal(got.cpu(), cpu.bfloat16().view(B, n, C))
+
+
+def test_float32_gather_backward_keeps_its_bits_beside_bf16(dev):
+    """The float32 sum after a bfloat16 one on the same plan: still CPU
+    index_add_ to the bit, and counted as float32."""
+    dout, idx, n = gather_case("level 1 grouping C32", dev)
+    B, R, C = dout.shape
+    cuda_gather.gather_backward(dout.bfloat16(), idx, n)
+    before = (cuda_gather.launches, cuda_gather.bf16_launches)
+    got = cuda_gather.gather_backward(dout, idx, n)
+    torch.cuda.synchronize()
+    assert (cuda_gather.launches - before[0], cuda_gather.bf16_launches - before[1]) == (1, 0)
+    flat = (idx.long() + torch.arange(B, device=dev)[:, None] * n).reshape(-1).cpu()
+    cpu = torch.zeros(B * n, C).index_add_(0, flat, dout.reshape(B * R, C).cpu())
+    assert got.dtype == torch.float32 and torch.equal(got.cpu(), cpu.view(B, n, C))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_gather.gather_backward(dout.half(), idx, n)
+
+
+def test_bf16_gathers_with_a_gradient_take_the_bf16_kernel(dev):
+    rng = np.random.RandomState(4)
+    points = torch.from_numpy(rng.randn(2, 50, 5).astype(np.float32)).to(dev).bfloat16()
+    points.requires_grad_()
+    idx = torch.from_numpy(rng.randint(0, 50, (2, 9, 4)).astype(np.int32)).to(dev)
+    before = cuda_gather.bf16_launches
+    out = ops.group_point(points, idx)
+    out.backward(torch.ones_like(out))
+    assert cuda_gather.bf16_launches - before == 1 and points.grad.dtype == torch.bfloat16
+    flat = (idx.long() + torch.arange(2, device=dev)[:, None, None] * 50).reshape(-1).cpu()
+    want = torch.zeros(100, 5).index_add_(0, flat, torch.ones(72, 5)).view(2, 50, 5)
+    assert torch.equal(points.grad.cpu(), want.bfloat16())
+
+
 def _counts():
     return (cuda_fps.launches, cuda_knn.launches, cuda_spatial.launches, cuda_ball.launches,
             cuda_streaming.launches)
@@ -731,7 +796,7 @@ def test_seg_train_step_and_forward_launch_counts(dev, monkeypatch):
              "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
              "smpw": torch.ones(2, 2048, device=dev)}
     before, g0, p0 = _counts(), cuda_gather.launches, cuda_gather.plan_launches
-    metrics = step(state, batch)
+    metrics = step(state, batch, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     assert _launched(before) == (4, 11, 0, 1, 0)
     assert cuda_gather.launches - g0 == SEG_GATHER_BACKWARDS
@@ -925,7 +990,7 @@ def test_flash_seg_train_step_and_forward_launch_counts(dev):
              "smpw": torch.ones(2, 2048, device=dev)}
     f0, b0, before = cuda_flash.fwd_launches, cuda_flash.bwd_launches, _counts()
     g0 = cuda_gather.launches
-    metrics = step(state, batch)
+    metrics = step(state, batch, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     assert (cuda_flash.fwd_launches - f0, cuda_flash.bwd_launches - b0) == (4, 4)
     assert _launched(before) == (4, 11, 0, 1, 0)
@@ -936,3 +1001,61 @@ def test_flash_seg_train_step_and_forward_launch_counts(dev):
     torch.cuda.synchronize()
     assert (cuda_flash.fwd_launches - f0, cuda_flash.bwd_launches - b0) == (4, 0)
     assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())
+
+
+def test_cls_train_step_launch_counts_in_float32_and_bf16(dev):
+    """A cls train step launches FPS 2 and the resident kNN 2 times in
+    float32 and in bfloat16; in bfloat16 the gather backwards (float32 and
+    bfloat16 sums together) and the plans are those of the float32 step,
+    some of them bfloat16. Parameters and BN statistics stay float32."""
+    from pointasnl_tpu_torch.nn import precision
+
+    launched = {}
+    for dtype in ("float32", "bfloat16"):
+        model = PointASNLCls(40, adaptive_sample=True, generator=torch.Generator().manual_seed(0),
+                             device=dev)
+        state = TrainState(model, make_optimizer(
+            "adam", staircase_lr_schedule(1e-3, 2, 200000, 0.7), model.parameters()))
+        step = make_train_step(bn_schedule=bn_momentum_schedule(2, 200000), task="cls")
+        batch = {"points": _cloud(5, 2, 1024).to(dev),
+                 "labels": torch.from_numpy(np.random.RandomState(5).randint(0, 40, 2)).to(dev)}
+        before = (_counts(), cuda_gather.launches, cuda_gather.bf16_launches,
+                  cuda_gather.plan_launches)
+        with precision.compute_dtype(dtype):
+            metrics = step(state, batch, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        assert _launched(before[0]) == (2, 2, 0, 0, 0)
+        launched[dtype] = (cuda_gather.launches - before[1], cuda_gather.bf16_launches - before[2],
+                           cuda_gather.plan_launches - before[3])
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+        assert all(v.dtype == torch.float32 for v in model.state_dict().values())
+    (f32, f32_bf16, f32_plans), (g32, g16, plans) = launched["float32"], launched["bfloat16"]
+    assert f32 > 0 and f32_bf16 == 0 and g16 > 0
+    assert g32 + g16 == f32 and plans == f32_plans
+
+
+def test_seg_bf16_train_step_launch_counts(dev):
+    """A bfloat16 seg step launches the float32 step's kernels: FPS 4, kNN
+    11, the ball query 1, the gather backward 19 times (float32 and bfloat16
+    sums together) on 12 plans."""
+    from pointasnl_tpu_torch.nn import precision
+
+    model = PointASNLSemSegRes(21, generator=torch.Generator().manual_seed(0), device=dev)
+    state = TrainState(model, make_optimizer("adam", staircase_lr_schedule(1e-3, 2, 200000, 0.7),
+                                             model.parameters()))
+    step = make_train_step(bn_schedule=bn_momentum_schedule(2, 200000), task="seg",
+                           uniform_weight=0.01)
+    rng = np.random.RandomState(0)
+    batch = {"points": torch.from_numpy((rng.rand(2, 2048, 3) * 0.5).astype(np.float32)).to(dev),
+             "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
+             "smpw": torch.ones(2, 2048, device=dev)}
+    before = (_counts(), cuda_gather.launches, cuda_gather.bf16_launches,
+              cuda_gather.plan_launches)
+    with precision.compute_dtype("bfloat16"):
+        metrics = step(state, batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert _launched(before[0]) == (4, 11, 0, 1, 0)
+    g32, g16 = cuda_gather.launches - before[1], cuda_gather.bf16_launches - before[2]
+    assert g16 > 0 and g32 + g16 == SEG_GATHER_BACKWARDS
+    assert cuda_gather.plan_launches - before[3] == SEG_GATHER_PLANS
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

@@ -180,7 +180,7 @@ def _grad_limit(jax_out, ref, name, gmax, rtol=1e-5):
     return rtol * scale + _far(jax_out, ref, "mu", name)
 
 
-def check_bn_stats_and_params(steps, stat_rtol=1e-6, param_atol=1e-6, ref=None):
+def check_bn_stats_and_params(steps, stat_rtol=1e-6, param_atol=1e-6, ref=None, min_moved=100):
     jax_out, tstate, _, _, sd = steps
     after, mu = jax_out["after"], jax_out["mu"]
     gmax = max(float(m.abs().max()) for m in mu.values())
@@ -204,7 +204,7 @@ def check_bn_stats_and_params(steps, stat_rtol=1e-6, param_atol=1e-6, ref=None):
             err = float((got - want).abs()[above].max()) if bool(above.any()) else 0.0
             limit = param_atol + _far(jax_out, ref, "after", name)
             assert err <= limit, f"{name}: max|port-jax| {err:.3e} where |g| > 1e-6"
-    assert moved > 100  # the step updated the running statistics
+    assert moved > min_moved  # the step updated the running statistics
 
 
 def test_seg_train_step_loss_terms_match_jax(steps):
