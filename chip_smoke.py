@@ -107,7 +107,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
      seeded rows against ``knn_point_chunked`` on the card, and the full
      M = N launch's rows against those; then
      ``PointASNLSemSegRes(21, nl_kv_block_size=4096)`` answers a warm-up
-     and 2 requests of B1 x 2228224: a request must launch the streaming
+     and a request of B1 x 2228224: a request must launch the streaming
      kNN 1, the spatial kNN 8, the resident kNN 2, FPS 4 and no ball query
      or flash kernel, and return finite (1, 2228224, 21)
      logits; peak memory, p50 by CUDA events, a profiler window over one
@@ -156,6 +156,30 @@ Phases (any failure raises, and the script exits non-zero with no result):
      next steps equal the uninterrupted run's to the bit, a
      StepTraceWindow's trace, the metric writer, and a DeviceIouEval on
      seg logits equal to the numpy IouEval.
+
+ 15. Slice 12, run after phase 14 and before the timing: the encoder-decoder
+     ``PointASNLSemSeg(21, feature_channel=3)`` as the ScanNet CLIs run
+     it, on crops that ``data/scannet.py:ScannetDataset`` draws (with
+     replacement: exact duplicate points) from synthetic ScanNet pickles
+     written to a temporary directory (scannet_pickles). FPS on its four
+     levels (8192 -> 1024 in the cluster design and in the block design
+     beside it), its twelve kNN searches (the k16 self-kNN at 8192^2, the
+     k3 search 8192q/1024 among them) and the repulsion loss's ball query
+     against their plain versions, indices exact, on a crop and on a cube;
+     3 train steps at B6 x 8192 (a step launches FPS 4, the resident kNN 12,
+     the ball query 1 and the gather backward ENC_GATHER_BWD times on
+     ENC_GATHER_PLANS plans; losses finite; peak memory printed) and 3
+     requests through ``serve.make_inference_fn`` (FPS 4 and kNN 12 a
+     request, logits finite); a step's gather backwards equal to the bit to
+     their plain versions and CPU index_add_; two steps from one state
+     equal to the bit; phase 7's card-against-CPU step for this model on a
+     B2 x 2048 crop; one ``nl_use_flash`` step (flash forward and backward
+     4 each); then ``cli.train_scannet --debug`` at its defaults (B6 x
+     8192), ``cli.test_scannet`` with one vote on one scene and with
+     ``--single_pass true --nl_block_size 4096`` on that scene of 131072
+     points. Timing adds the path's kernels (device, call, plain and bound
+     ms at each shape: path seg_encdec), the step and the request (p50,
+     p90, peak memory, in turns) and a profiler window over 3 of each.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
@@ -366,7 +390,7 @@ FLASH_RTOL, FLASH_GRAD_RTOL = 1e-5, 1e-4
 # extent to 6.0 x sqrt(17)), K/V blocks of 4096, BIG_REQUESTS requests on as
 # many scenes after a warm-up. The full-scene kNN checks take BIG_ROWS seeded
 # query rows.
-BIG_N, BIG_REQUESTS, BIG_ROWS = 2228224, 2, 4096
+BIG_N, BIG_REQUESTS, BIG_ROWS = 2228224, 1, 4096
 # The request's other searches are held to the plain version on rows whose
 # pairs stay within BIG_PAIRS (about half a second of the plain kNN).
 BIG_PAIRS = 2 ** 32
@@ -380,6 +404,46 @@ BIG_LEVELS = [BIG_N, BIG_N // 8, BIG_N // 32, BIG_N // 128, BIG_N // 256]
 BIG_LAUNCHES = {"fps": 4, "knn_resident": 2, "ball_query": 0, "knn_spatial": 8,
                 "knn_streaming": 1, "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0,
                 "gather_plan": 0, "gather_bwd_bf16": 0}
+
+# Slice 12: the encoder-decoder pointasnl_sem_seg as the ScanNet CLIs run
+# it (PointASNLSemSeg(21, feature_channel=3), B6 x 8192, RGB), on crops that
+# ScannetDataset draws with replacement from synthetic scenes of
+# ENC_SCENE_N points (surface_scene, extent ENC_SCENE_EXTENT, random RGB and
+# labels) in pickles written to a temporary directory.
+ENC_B, ENC_N, ENC_FEATURES, ENC_STEPS, ENC_REQUESTS = 6, 8192, 3, 3, 3
+ENC_SCENE_N, ENC_SCENE_EXTENT = 131072, 5.0
+ENC_LEVELS = [ENC_N, ENC_N // 8, ENC_N // 32, ENC_N // 128, ENC_N // 256]
+# kNN searches of a forward as (support level, query level, k): the four SA
+# cells' groupings (queries: the FPS samples), then each decoding layer's
+# three_nn (support: the sparse level) and self-kNN of 16.
+ENC_KNN = [(0, 1, 32), (1, 2, 32), (2, 3, 32), (3, 4, 32), (4, 3, 3), (3, 3, 16), (3, 2, 3),
+           (2, 2, 16), (2, 1, 3), (1, 1, 16), (1, 0, 3), (0, 0, 16)]
+# A train step's gather backwards and their plans (tests/test_torch_sem_seg.py
+# counts them on the CPU), and a forward's searches.
+ENC_GATHER_BWD, ENC_GATHER_PLANS = 18, 12
+ENC_LAUNCHES = {"fps": 4, "knn_resident": 12, "ball_query": 0, "knn_spatial": 0,
+                "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0,
+                "gather_plan": 0, "gather_bwd_bf16": 0}
+# test_scannet --single_pass on one scene of ENC_SCENE_N points (B1): the
+# five searches whose support passes 12288 points go to the spatial kernel
+# (levels 1-2's SA groupings, the self-kNN of 16 at 131072 and 16384 points,
+# the three_nn 131072q/16384), the other seven to the resident one.
+ENC_SINGLE_PASS_LAUNCHES = {**ENC_LAUNCHES, "knn_resident": 7, "knn_spatial": 5}
+# The encoder-decoder's card-vs-CPU step replays the card's searches on the
+# CPU; the CPU's own float32 searches are then held to the card's. A call
+# whose inputs are equal to the bit must give the same indices. The others
+# take adaptive-sampling outputs (or points picked from them), which float32
+# rounds differently on the two: their inputs within ENC_INPUT_ATOL of the
+# card's (the clouds span ~1, so a wrong tensor reaching a search is far
+# past it), at most ENC_FLIPS_MAX near-tie indices flipped in all, and
+# three_nn's inverse-distance weights (d^2 clamped at 1e-10) within
+# ENC_IDW_ATOL on the rows whose three neighbours agree. On the H100 (PERF.md
+# section 6): one flip, and weights 8.4e-5 apart.
+ENC_INPUT_ATOL, ENC_FLIPS_MAX, ENC_IDW_ATOL = 1e-4, 4, 1e-3
+# (B, M queries, N keys, C, D) of the four non-local cells under --nl_flash.
+FLASH_ENC = [(ENC_B, ENC_N // 8, ENC_N, 32, 32), (ENC_B, ENC_N // 32, ENC_N // 8, 32, 32),
+             (ENC_B, ENC_N // 128, ENC_N // 32, 64, 64),
+             (ENC_B, ENC_N // 256, ENC_N // 128, 128, 128)]
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
 # on the tensor cores (dense) and HBM bandwidth, for each kernel's bound.
@@ -443,18 +507,16 @@ def in_turns(plain, kernel, timing=LIGHT, plain_timing=None):
     return statistics.median(k), statistics.median(p)
 
 
-def device_ms(fn, kernels, calls: int = 10, tries: int = 3):
-    """Median device time (ms) of one launch of each of `kernels` (a
-    substring of a CUDA kernel's name, or a tuple of those a call launches,
-    every one of them) over `calls` calls of fn, summed, from
-    torch.profiler. The profiler at times records no launch of a kernel in a
-    window: then the window is taken again, up to `tries` windows, and
-    where a kernel is still missing, None (never the sum of the others).
-    Call it before any profile_window: once that scheduled profiler has
-    run, this one recorded no launch on the card."""
+def launch_us(fn, kernels, calls: int, tries: int, seen=all):
+    """The device time (us) of every launch of each of `kernels` (substrings
+    of CUDA kernel names) over `calls` calls of fn, after one to warm up,
+    from torch.profiler: {kernel: [us, ...]}. The profiler at times records
+    no launch of a kernel in a window: then the window is taken again, up to
+    `tries` windows, until `seen` (all or any) of the kernels have launches;
+    else None. Call it before any profile_window: once that scheduled
+    profiler has run, this one recorded no launch on the card."""
     from torch.profiler import ProfilerActivity, profile
 
-    kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -465,14 +527,35 @@ def device_ms(fn, kernels, calls: int = 10, tries: int = 3):
         times = {kernel: [e.time_range.elapsed_us() for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and kernel in e.name] for kernel in kernels}
-        missing = [kernel for kernel, ts in times.items() if not ts]
-        if not missing:
-            for kernel, ts in times.items():
-                if len(ts) < calls:
-                    print(f"profiler: {len(ts)} of {calls} launches of {kernel} recorded")
-            return sum(statistics.median(ts) for ts in times.values()) / 1e3
-        print(f"profiler: no launch of {', '.join(missing)} recorded; profiling again")
+        if seen(bool(ts) for ts in times.values()):
+            return times
+        print(f"profiler: no launch of {', '.join(k for k, ts in times.items() if not ts)} "
+              f"recorded; profiling again")
     return None
+
+
+def device_ms(fn, kernels, calls: int = 10, tries: int = 3):
+    """Median device time (ms) of one launch of each of `kernels` (a
+    substring of a CUDA kernel's name, or a tuple of those a call launches,
+    every one of them) over `calls` calls of fn, summed; None where a
+    kernel's launches were not recorded (never the sum of the others)."""
+    kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
+    times = launch_us(fn, kernels, calls, tries)
+    if times is None:
+        return None
+    for kernel, ts in times.items():
+        if len(ts) < calls:
+            print(f"profiler: {len(ts)} of {calls} launches of {kernel} recorded")
+    return sum(statistics.median(ts) for ts in times.values()) / 1e3
+
+
+def device_ms_all(fn, kernels, calls: int = 5, tries: int = 3):
+    """Device time (ms) of a call of fn summed over every launch of every
+    kernel whose name holds one of `kernels`: for a call that launches the
+    same kernels many times, as a train step's gather backwards do. None
+    where no launch was recorded."""
+    times = launch_us(fn, tuple(kernels), calls, tries, seen=any)
+    return None if times is None else sum(map(sum, times.values())) / calls / 1e3
 
 
 def bound(nbytes: float, ops: float, peak: float = PEAK_F32_FLOPS):
@@ -944,9 +1027,11 @@ def seg_batch(seed: int, B: int, N: int, side: float, dev):
             "smpw": torch.ones(B, N, device=dev)}
 
 
-def capture_l1_xyz(model, store: list):
-    """Keep each forward's l1_xyz (layer1_1's output xyz)."""
-    return model.layer1_1.register_forward_hook(lambda m, a, out: store.append(out[0].detach()))
+def capture_l1_xyz(model, store: list, layer: str = "layer1_1"):
+    """Keep each forward's l1_xyz (the output xyz of `layer`: layer1_1 of
+    the residual model, layer1 of the encoder-decoder)."""
+    return getattr(model, layer).register_forward_hook(
+        lambda m, a, out: store.append(out[0].detach()))
 
 
 def phase_seg(dev, flash: bool = False):
@@ -1017,33 +1102,40 @@ def phase_seg(dev, flash: bool = False):
     return state, step, infer, launches, serve_launches
 
 
-def _yardstick(what: str, card, cpu, cpu64, scale: float) -> float:
-    """Check |card - cpu| against the float32 yardstick; return the ratio of
-    the error to its limit."""
+def _ratio(card, cpu, cpu64, scale: float):
+    """(error / limit, the numbers) of |card - cpu| against the float32
+    yardstick: YARDSTICK x |cpu - cpu64| + FLOOR_RTOL x scale."""
     err = float((card.double() - cpu.double()).abs().max())
     f32 = float((cpu.double() - cpu64.double()).abs().max())
     limit = YARDSTICK * f32 + FLOOR_RTOL * scale
-    if not err <= limit:
-        raise RuntimeError(f"card vs cpu {what}: {err:.3e} over its limit {limit:.3e} "
-                           f"(cpu vs float64 {f32:.3e}, scale {scale:.3e})")
-    return err / limit
+    return err / limit, (f"{err:.3e} against its limit {limit:.3e} (cpu vs float64 {f32:.3e}, "
+                         f"card vs float64 {float((card.double() - cpu64.double()).abs().max()):.3e}"
+                         f", scale {scale:.3e})")
 
 
-def phase_card_vs_cpu(dev, flash: bool = False):
-    """One seg train step on the card against the CPU's, dense or under
-    nl_use_flash (`flash`). The CPU's float64 step still runs its flash
-    attention in float32 inside, as JAX's does."""
-    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+def _yardstick(what: str, card, cpu, cpu64, scale: float) -> float:
+    """Check |card - cpu| against the float32 yardstick; return the ratio of
+    the error to its limit."""
+    ratio, numbers = _ratio(card, cpu, cpu64, scale)
+    if not ratio <= 1.0:
+        raise RuntimeError(f"card vs cpu {what}: {numbers}")
+    return ratio
 
-    card = PointASNLSemSegRes(SEG_CLASSES, dropout_keep=1.0, nl_use_flash=flash,
-                              generator=torch.Generator().manual_seed(SEED + 1), device=dev)
-    sd = {k: v.cpu() for k, v in card.state_dict().items()}
+
+def card_vs_cpu(dev, make, batch, layer: str, tag: str, tape=None):
+    """One seg train step of the model make(device, generator) on the card
+    against the CPU's in float32 and float64, from the same weights, on
+    `batch`; `layer` is the SA cell whose output xyz is level 1. With `tape`
+    (a SearchTape) the card's searches are recorded on it and replayed in
+    the CPU's steps, so the steps differ in their arithmetic only. Returns
+    the CPU's float32 model and the card's state_dict before the step."""
+    card = make(dev, torch.Generator().manual_seed(SEED + 1))
+    sd = {k: v.cpu().clone() for k, v in card.state_dict().items()}
     cpus = {}
     for dtype in (torch.float32, torch.float64):
-        m = PointASNLSemSegRes(SEG_CLASSES, dropout_keep=1.0, nl_use_flash=flash, device="cpu")
+        m = make("cpu")
         m.load_state_dict(sd)
         cpus[dtype] = m.to(dtype)
-    batch = seg_batch(400, CMP_B, CMP_N, CMP_SIDE, dev)
     runs = {}
     for name, model, to in (("card", card, lambda t: t),
                             ("cpu", cpus[torch.float32], lambda t: t.cpu()),
@@ -1051,22 +1143,24 @@ def phase_card_vs_cpu(dev, flash: bool = False):
                              lambda t: t.cpu().double() if t.is_floating_point() else t.cpu())):
         state, step = seg_trainer(model, CMP_B)
         l1 = []
-        hook = capture_l1_xyz(model, l1)
+        hook = capture_l1_xyz(model, l1, layer)
         t0 = time.perf_counter()
-        metrics = step(state, {k: to(v) for k, v in batch.items()})
+        with (contextlib.nullcontext() if tape is None else
+              tape.recording() if name == "card" else tape.replaying()):
+            metrics = step(state, {k: to(v) for k, v in batch.items()})
         torch.cuda.synchronize()
         hook.remove()
         runs[name] = {"metrics": {k: v.cpu() for k, v in metrics.items()},
                       "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
                       "state": {k: v.cpu() for k, v in model.state_dict().items()},
                       "l1_xyz": l1[0]}
-        print(f"card vs cpu{' (flash)' * flash}: {name} step in {time.perf_counter() - t0:.2f} s")
+        print(f"card vs cpu{tag}: {name} step in {time.perf_counter() - t0:.2f} s")
 
-    x = batch["points"]
+    x = batch["points"][..., :3].contiguous()
     for what, a, b in zip(("fps", "knn"), layer_indices(x, CMP_N // 8, 32),
                           layer_indices(x.cpu(), CMP_N // 8, 32)):
         if not torch.equal(a, b):
-            raise RuntimeError(f"card vs cpu: layer-1 {what} indices differ")
+            raise RuntimeError(f"card vs cpu{tag}: layer-1 {what} indices differ")
     l2 = [int((a != b).sum()) for a, b in zip(layer_indices(runs["card"]["l1_xyz"], CMP_N // 32, 32),
                                                layer_indices(runs["cpu"]["l1_xyz"], CMP_N // 32, 32))]
     c, p, p64 = runs["card"], runs["cpu"], runs["cpu64"]
@@ -1077,23 +1171,114 @@ def phase_card_vs_cpu(dev, flash: bool = False):
         worst[f"metric {k}"] = _yardstick(k, c["metrics"][k], p["metrics"][k], p64["metrics"][k],
                                           abs(float(p64["metrics"][k])))
     gmax = max(float(g.abs().max()) for g in p64["grads"].values())
-    g_ratios = sorted(((_yardstick(f"grad {k}", c["grads"][k], p["grads"][k], p64["grads"][k],
-                                   max(float(p64["grads"][k].abs().max()), 1e-6 * gmax)), k)
+    g_ratios = sorted(((*_ratio(c["grads"][k], p["grads"][k], p64["grads"][k],
+                                max(float(p64["grads"][k].abs().max()), 1e-6 * gmax)), k)
                        for k in c["grads"]), reverse=True)
-    g_ratio = g_ratios[0][0]
-    print("card vs cpu: worst gradients (error / limit): " +
-          ", ".join(f"{k} {r:.3f}" for r, k in g_ratios[:3]))
+    g_ratio, g_numbers, g_worst = g_ratios[0]
+    print(f"card vs cpu{tag}: worst gradients (error / limit): " +
+          ", ".join(f"{k} {r:.3f}" for r, _, k in g_ratios[:5]) +
+          f"; {sum(r > 1 for r, _, _ in g_ratios)} of {len(g_ratios)} past it; level-2 indices "
+          f"differing: fps {l2[0]}, knn {l2[1]}")
+    if not g_ratio <= 1.0:
+        raise RuntimeError(f"card vs cpu{tag} grad {g_worst}: {g_numbers}")
     bn_ratio = max(_yardstick(f"BN {k}", c["state"][k], p["state"][k], p64["state"][k],
                               max(float(p64["state"][k].abs().max()), 1.0))
                    for k in c["state"] if k.endswith((".mean", ".var")))
-    print(f"card vs cpu, B2x2048 train step, nl_use_flash={flash}: " + ", ".join(
+    print(f"card vs cpu{tag}, B{CMP_B}x{CMP_N} train step: " + ", ".join(
         f"{k} card {float(c['metrics'][k]):.7f} cpu {float(p['metrics'][k]):.7f} "
         f"cpu64 {float(p64['metrics'][k]):.7f}" for k in c["metrics"]))
-    print(f"card vs cpu{' (flash)' * flash}: layer-1 FPS and kNN indices exact; level-2 "
+    print(f"card vs cpu{tag}: layer-1 FPS and kNN indices exact; level-2 "
           f"indices differing: "
           f"fps {l2[0]}, knn {l2[1]}; worst error / limit: loss terms "
           f"{max(worst.values()):.3f}, gradients {g_ratio:.3f}, BN stats {bn_ratio:.3f} "
           f"(limit {YARDSTICK:g} x |cpu - cpu64| + {FLOOR_RTOL:g} x scale)")
+    return cpus[torch.float32], sd
+
+
+def phase_card_vs_cpu(dev, flash: bool = False):
+    """One PointASNLSemSegRes train step on the card against the CPU's,
+    dense or under nl_use_flash (`flash`). The CPU's float64 step still runs
+    its flash attention in float32 inside, as JAX's does."""
+    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+
+    def make(device, generator=None):
+        return PointASNLSemSegRes(SEG_CLASSES, dropout_keep=1.0, nl_use_flash=flash,
+                                  generator=generator, device=device)
+
+    card_vs_cpu(dev, make, seg_batch(400, CMP_B, CMP_N, CMP_SIDE, dev), "layer1_1",
+                f" (nl_use_flash={flash})")
+
+
+def phase_encdec_card_vs_cpu(dev, root):
+    """One PointASNLSemSeg(21, 3) train step on the card against the CPU's,
+    on a B2 x 2048 ScannetDataset crop of the pickles in root (duplicates
+    included). The CPU's steps replay the card's searches: the decoding
+    layers search the adaptive-sampling outputs of levels 1-2, which float32
+    rounds differently on the card and the CPU, and a near tie there flips
+    (on the H100, PERF.md section 6: one of the 16 neighbours of one of the
+    64 points of l2, which put fc2's gradient at 1.49 times its limit).
+    The CPU's own searches are then held to the card's (own_searches)."""
+    from pointasnl_tpu_torch.models import PointASNLSemSeg
+
+    def make(device, generator=None):
+        return PointASNLSemSeg(SEG_CLASSES, ENC_FEATURES, dropout_keep=1.0,
+                               generator=generator, device=device)
+
+    batch, tape = scannet_batch(root, CMP_B, CMP_N, 410, dev), SearchTape()
+    cpu, sd = card_vs_cpu(dev, make, batch, "layer1", " (encoder-decoder)", tape)
+    print("card vs cpu (encoder-decoder): the card's searches replayed in the CPU's steps; "
+          "the CPU's own float32 searches against the card's: " + own_searches(cpu, sd, batch, tape))
+
+
+def own_searches(model, sd, batch, tape) -> str:
+    """One more CPU step of `model` from the state_dict `sd`, its own
+    searches recorded, held to the card's on `tape` (ENC_INPUT_ATOL,
+    ENC_FLIPS_MAX, ENC_IDW_ATOL): calls on inputs equal to the bit give the
+    same indices; the others' inputs are near the card's, their flipped
+    indices few, and three_nn's weights close where its neighbours agree.
+    Returns what it measured."""
+    model.load_state_dict(sd)
+    own = SearchTape()
+    state, step = seg_trainer(model, batch["points"].shape[0])
+    with own.recording():
+        step(state, {k: v.cpu() for k, v in batch.items()})
+    flips, n_flips, gap, w_gap, exact = [], 0, 0.0, 0.0, 0
+    for op, calls in tape.calls.items():
+        if len(calls) != len(own.calls[op]):
+            raise RuntimeError(f"own searches: {len(own.calls[op])} {op} calls on the CPU, "
+                               f"{len(calls)} on the card")
+        for i, ((_, ref), (_, got), ref_args, got_args) in enumerate(
+                zip(calls, own.calls[op], tape.args[op], own.args[op])):
+            d = max(float((a.detach().cpu().double() - b.detach().double()).abs().max())
+                    for a, b in zip(ref_args, got_args) if torch.is_tensor(a))
+            if not d <= ENC_INPUT_ATOL:
+                raise RuntimeError(f"own searches: {op} call {i}'s inputs are {d:.3e} from the "
+                                   f"card's, past {ENC_INPUT_ATOL:g}")
+            gap = max(gap, d)
+            ref, got = (ref if isinstance(ref, tuple) else (ref,)), (
+                got if isinstance(got, tuple) else (got,))
+            idx_r, idx_g = (ref[1], got[1]) if op == "knn_point" else (ref[0], got[0])
+            differ = idx_r.cpu() != idx_g
+            n = int(differ.sum())
+            if n and d == 0.0:
+                raise RuntimeError(f"own searches: {op} call {i} on the card's inputs to the bit "
+                                   f"gives {n} other indices")
+            exact += d == 0.0
+            if n:
+                flips.append(f"{op} {i} {tuple(idx_g.shape)}: {n}")
+                n_flips += n
+            if op == "knn_point" and ref[0].shape[-1] == 3:
+                w = [1.0 / t.cpu().double().clamp_min(1e-10) for t in (ref[0], got[0])]
+                w = [v / v.sum(-1, keepdim=True) for v in w]
+                agree = ~differ.any(-1, keepdim=True)
+                w_gap = max(w_gap, float(((w[0] - w[1]).abs() * agree).max()))
+    said = (f"{exact} calls on inputs equal to the bit, the others' inputs up to {gap:.3e} apart; "
+            f"indices differing in {len(flips)} calls ({'; '.join(flips) or 'none'}); three_nn "
+            f"weights differ by up to {w_gap:.3e}")
+    if n_flips > ENC_FLIPS_MAX or not w_gap <= ENC_IDW_ATOL:
+        raise RuntimeError(f"own searches: {said} (at most {ENC_FLIPS_MAX} flips and "
+                           f"{ENC_IDW_ATOL:g} allowed)")
+    return said
 
 
 def record_gathers(fn):
@@ -1221,6 +1406,35 @@ def phase_gather(dev):
     return cases
 
 
+def twice_from_one_state(label: str, model, batch, dtype: str = "float32") -> list:
+    """Two train steps of `model` from its present state with one dropout
+    seed; prints how many gradients, updated parameters and BN statistics
+    are equal to the bit, and returns the names of those that differ. The
+    model is left at its state after the second step."""
+    import copy
+
+    init = copy.deepcopy(model.state_dict())
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(init)
+        state, step = seg_trainer(model, batch["points"].shape[0])  # one dropout seed for both
+        in_dtype(dtype, step)(state, batch)
+        torch.cuda.synchronize()
+        runs.append(({k: p.grad.clone() for k, p in model.named_parameters()},
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    (g1, s1), (g2, s2) = runs
+    bn = [k for k in s1 if k.endswith((".mean", ".var"))]
+    groups = {"gradients": (g1, g2, list(g1)),
+              "updated parameters": (s1, s2, [k for k in s1 if k not in bn]),
+              "BN statistics": (s1, s2, bn)}
+    differ = {w: [k for k in keys if not torch.equal(a[k], b[k])]
+              for w, (a, b, keys) in groups.items()}
+    print(f"determinism, {label}, twice from one state: " +
+          ", ".join(f"{len(keys) - len(differ[w])} of {len(keys)} {w}"
+                    for w, (_, _, keys) in groups.items()) + " equal to the bit")
+    return [k for keys in differ.values() for k in keys]
+
+
 def phase_determinism(dev):
     """Two seg train steps at B4 x 10240 from one state, with one dropout
     seed, dense, under nl_use_flash and in bfloat16: their gradients,
@@ -1241,25 +1455,7 @@ def phase_determinism(dev):
         model = PointASNLSemSegRes(SEG_CLASSES, nl_use_flash=flash,
                                    generator=torch.Generator().manual_seed(SEED + 4), device=dev)
         init = copy.deepcopy(model.state_dict())
-        runs = []
-        for _ in range(2):
-            model.load_state_dict(init)
-            state, step = seg_trainer(model, SEG_B)  # one dropout seed for both runs
-            in_dtype(dtype, step)(state, batch)
-            torch.cuda.synchronize()
-            runs.append(({k: p.grad.clone() for k, p in model.named_parameters()},
-                         {k: v.clone() for k, v in model.state_dict().items()}))
-        (g1, s1), (g2, s2) = runs
-        bn = [k for k in s1 if k.endswith((".mean", ".var"))]
-        groups = {"gradients": (g1, g2, list(g1)),
-                  "updated parameters": (s1, s2, [k for k in s1 if k not in bn]),
-                  "BN statistics": (s1, s2, bn)}
-        differ = {w: [k for k in keys if not torch.equal(a[k], b[k])]
-                  for w, (a, b, keys) in groups.items()}
-        print(f"determinism, {label} train step B{SEG_B}x{SEG_N}, twice from one state: " +
-              ", ".join(f"{len(keys) - len(differ[w])} of {len(keys)} {w}"
-                        for w, (_, _, keys) in groups.items()) + " equal to the bit")
-        bad = [k for keys in differ.values() for k in keys]
+        bad = twice_from_one_state(f"{label} train step B{SEG_B}x{SEG_N}", model, batch, dtype)
         if bad:
             failed.append(f"{label}: {len(bad)} tensors (first: {bad[0]})")
         models[label] = (model, init, dtype)
@@ -1557,10 +1753,10 @@ def plan_bound(B, n, R):
     return bound(B * R * 4 + B * R * 4 + (B * n + 1) * 4, 2 * B * R)
 
 
-def time_kernels(dev, card, gathers, gathers_bf16):
+def time_kernels(dev, card, gathers, gathers_bf16, enc):
     """Kernel vs plain times, and bounds, at every slice's shapes; `gathers`
     are the (dout, idx, n) of a seg step's gather backwards, `gathers_bf16`
-    those of a bfloat16 seg step."""
+    those of a bfloat16 seg step, `enc` slice 12's (slice12)."""
     from pointasnl_tpu_torch.ops import geometry
     from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial, knn_streaming
 
@@ -1631,7 +1827,7 @@ def time_kernels(dev, card, gathers, gathers_bf16):
         add("fps", "scene", f"B1 N{N}->{n}", lambda: geometry.farthest_point_sample(n, a),
             lambda: fps.farthest_point_sample(n, a), fps_bound(1, N, n),
             timing=(10, 2) if N == SCENE_N else HEAVY if N > 1024 else LIGHT,
-            plain_timing=SLOW if N == SCENE_N else None,
+            plain_timing=SLOW if N >= SCENE_LEVELS[1] else None,
             symbol=fps_symbol(a), fps_n=N, fps_npoint=n)
     for name, s, q, k in scene_spatial_shapes(levels):
         N, M = s.shape[1], q.shape[1]
@@ -1734,6 +1930,121 @@ def time_kernels(dev, card, gathers, gathers_bf16):
             lambda a=(idx, n): gather_backward.plan_kernel(*a), plan_bound(B, n, R),
             symbol=plan_symbols(B, R, n))
 
+    # Slice 12's shapes (path seg_encdec), on the levels of a ScannetDataset
+    # crop: FPS (8192 -> 1024 also in the block design, off the path), the
+    # twelve kNN searches, the repulsion loss's ball query, the flash kernels
+    # at the four non-local cells of --nl_flash, and an encdec step's gather
+    # backwards (each a call with its own plan) and their plans.
+    levels = enc["levels"]
+    for a, n in zip(levels, ENC_LEVELS[1:]):
+        N = a.shape[1]
+        add("fps", "seg_encdec", f"B{ENC_B} N{N}->{n}",
+            lambda a=a, n=n: geometry.farthest_point_sample(n, a),
+            lambda a=a, n=n: fps.farthest_point_sample(n, a), fps_bound(ENC_B, N, n),
+            timing=HEAVY if n >= 256 else LIGHT, symbol=fps_symbol(a), fps_n=N, fps_npoint=n)
+    a, n = levels[0], ENC_LEVELS[1]
+    add("fps", "check", f"B{ENC_B} N{ENC_N}->{n} (block design, off the path)",
+        lambda: geometry.farthest_point_sample(n, a), lambda: fps._sample("block", n, a),
+        fps_bound(ENC_B, ENC_N, n), timing=HEAVY, symbol=KERNELS["fps"]["symbol"],
+        fps_n=ENC_N, fps_npoint=n)
+    for si, qi, k in ENC_KNN:
+        s_, q = levels[si], levels[qi]
+        N, M = s_.shape[1], q.shape[1]
+        add("knn_resident", "seg_encdec", f"B{ENC_B} {M}q/{N} k{k}",
+            lambda s_=s_, q=q, k=k: geometry.knn_point(k, s_, q),
+            lambda s_=s_, q=q, k=k: knn.knn_point(k, s_, q), knn_bound(ENC_B, N, M, k),
+            timing=HEAVY if N * M >= 10**7 else LIGHT)
+    l1 = levels[1]
+    idx, cnt = ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1)
+    n1 = l1.shape[1]
+    add("ball_query", "seg_encdec", f"B{ENC_B} {n1}q/{n1} ns{REPULSION_NSAMPLE} "
+        f"r{REPULSION_RADIUS}",
+        lambda: geometry.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1),
+        lambda: ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1),
+        ball_bound(n1, n1, ENC_B, REPULSION_NSAMPLE, idx, cnt),
+        mean_count=float(cnt.float().mean()))
+    for B, M, N, C, D in FLASH_ENC:
+        q, k, v, do = flash_inputs("time", B, M, N, C, D, 1.0, dev)
+        scale = fa.flash_scale(C)
+        o, lse = cuda_flash.flash_forward(q, k, v, scale)
+        timing = HEAVY if M * N >= 10**7 else LIGHT
+        shape = f"B{B} {M}q/{N} C{C} D{D}"
+        add("flash_fwd", "seg_encdec", shape,
+            lambda q=q, k=k, v=v, s=scale: fa.flash_forward_reference(q, k, v, s),
+            lambda q=q, k=k, v=v, s=scale: cuda_flash.flash_forward(q, k, v, s),
+            flash_fwd_bound(B, M, N, C, D), timing, symbol=flash_fwd_symbols(B, M, N, C, D),
+            library=lambda q=q, k=k, v=v, s=scale:
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s))
+
+        def sdpa_fwd_bwd(q=q, k=k, v=v, do=do, scale=scale):
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+            torch.autograd.grad(out, (q, k, v), do)
+
+        add("flash_bwd", "seg_encdec", shape,
+            lambda a=(q, k, v, o, lse, do, scale): fa.flash_backward_reference(*a),
+            lambda a=(q, k, v, o, lse, do, scale): cuda_flash.flash_backward(*a),
+            flash_bwd_bound(B, M, N, C, D), timing, symbol=flash_bwd_symbols(B, M, N, C, D),
+            library=sdpa_fwd_bwd, bound_f32_ms=flash_bwd_bound(B, M, N, C, D, None)[0])
+    # test_scannet --single_pass's twelve searches on the scene of
+    # ENC_SCENE_N points, on the inputs the pass gave them (path
+    # seg_encdec_single_pass); its four FPS calls have the whole-scene
+    # request's shapes (path scene).
+    for name, k, s_, q in enc["single_pass"]:
+        N, M = s_.shape[1], q.shape[1]
+        shape = f"B1 {M}q/{N} k{k}{' (self)' if q is s_ else ''}"
+        plain = lambda s_=s_, q=q, k=k: geometry.knn_point(k, s_, q)  # noqa: E731
+        if name == "knn_spatial":
+            tested = knn_spatial.pairs_tested(k, s_, q)
+            add(name, "seg_encdec_single_pass", shape, plain,
+                lambda s_=s_, q=q, k=k: knn_spatial.knn_point(k, s_, q), spatial_bound(1, N, M, k),
+                (10, 2), SLOW if N * M >= 10**9 else HEAVY, pairs_tested=tested,
+                pairs_tested_share=tested / (N * M))
+        else:
+            add(name, "seg_encdec_single_pass", shape, plain,
+                lambda s_=s_, q=q, k=k: knn.knn_point(k, s_, q), knn_bound(1, N, M, k),
+                timing=HEAVY if N * M >= 10**7 else LIGHT)
+    # The step's gathers and plans in all, as the step runs them (one row
+    # each: device ms of all their launches), and its largest gather, the
+    # last decoding layer's grouping, and its plan at their own shape.
+    enc_gathers, enc_plans = enc["gathers"], seg_plans(enc["gathers"])
+    step_all = lambda: as_a_step_runs_them(enc_gathers)  # noqa: E731
+    call_ms, p_ms = in_turns(
+        lambda: [gather_backward.gather_backward_reference(*g) for g in enc_gathers], step_all,
+        HEAVY, SLOW)
+    sum_ms = device_ms_all(step_all, (KERNELS["gather_bwd"]["symbol"],))
+    plan_ms = device_ms_all(step_all, KERNELS["gather_plan"]["symbol"])
+    bounds = [gather_bound(*g[0].shape[:2], g[2], g[0].shape[2]) for g in enc_gathers]
+    seen = sum_ms is not None and plan_ms is not None  # else ms is the call's, by CUDA events
+    rows["gather_bwd"].append({
+        "path": "seg_encdec", "shape": f"the {len(enc_gathers)} of a B{ENC_B}x{ENC_N} step as it "
+        f"runs them ({len(enc_plans)} plans)", "ms": sum_ms + plan_ms if seen else call_ms,
+        **({} if seen else {"ms_is_call_ms": True}),
+        "call_ms": call_ms, "plain_ms": p_ms, "bound_ms": sum(b[0] for b in bounds),
+        "bound_by": "bytes", "sum_ms": sum_ms,
+        "library_ms": statistics.median(time_ms(lambda: [index_add(*g) for g in enc_gathers],
+                                                *HEAVY))})
+    plan_call_ms, segments_ms = in_turns(
+        lambda: [gather_backward.segments(*p) for p in enc_plans],
+        lambda: [gather_backward.plan_kernel(*p) for p in enc_plans], HEAVY)
+    rows["gather_plan"].append({
+        "path": "seg_encdec", "shape": f"the {len(enc_plans)} plans of a B{ENC_B}x{ENC_N} step",
+        "ms": plan_ms if plan_ms is not None else plan_call_ms,
+        **({} if plan_ms is not None else {"ms_is_call_ms": True}),
+        "call_ms": plan_call_ms, "plain_ms": segments_ms,
+        "bound_ms": sum(plan_bound(idx.shape[0], n, idx.shape[1])[0] for idx, n in enc_plans),
+        "bound_by": "bytes", "library_ms": None})
+    dout, idx, n = max(enc_gathers, key=lambda g: g[0].numel())
+    B, R, C = dout.shape
+    add("gather_bwd", "check", f"B{B} {R} rows -> {n} C{C} (the step's largest)",
+        lambda: gather_backward.gather_backward_reference(dout, idx, n),
+        lambda: planned_anew(dout, idx, n), gather_bound(B, n, R, C), plain_timing=SLOW,
+        library=lambda: index_add(dout, idx, n),
+        symbol=plan_symbols(B, R, n) + (KERNELS["gather_bwd"]["symbol"],))
+    add("gather_plan", "check", f"B{B} {R} rows -> {n} (the step's largest)",
+        lambda: gather_backward.segments(idx, n), lambda: gather_backward.plan_kernel(idx, n),
+        plan_bound(B, n, R), symbol=plan_symbols(B, R, n))
+
     for name, rs in rows.items():
         for r in rs:
             tested = (f", pairs tested {r['pairs_tested']} ({100 * r['pairs_tested_share']:.3f} % "
@@ -1780,7 +2091,8 @@ def time_kernels(dev, card, gathers, gathers_bf16):
           f"({n_bf16} of bfloat16 cotangents) as the step runs them, {bf16_ms:.4f} ms by CUDA "
           f"events back to back against index_add_'s {bf16_add_ms:.4f} ms on the same shapes and "
           f"dtypes  [{card}]")
-    g, p = rows["gather_bwd"], [r for r in rows["gather_plan"] if r["path"] == "seg"]
+    g = [r for r in rows["gather_bwd"] if r["path"] == "seg"]
+    p = [r for r in rows["gather_plan"] if r["path"] == "seg"]
     print(f"time gather_bwd [seg]: a step's {len(g)} calls, each with its own plan, "
           f"{sum(r['call_ms'] for r in g):.4f} ms back to back against index_add_'s "
           f"{sum(r['library_ms'] for r in g):.4f} ms; on the device {sum(r['ms'] for r in g):.4f} "
@@ -2287,12 +2599,14 @@ class SearchTape:
     others, each op's calls in order, every call's sizes and shapes checked
     against the recording: runs on other devices or in other dtypes then
     differ in their arithmetic only. Use as `with tape.recording():` and
-    `with tape.replaying():`."""
+    `with tape.replaying():`. A recording also keeps each call's arguments
+    (`args`), so its searches can be run again."""
 
     OPS = ("farthest_point_sample", "knn_point", "query_ball_point")
 
     def __init__(self):
         self.calls = {op: [] for op in self.OPS}
+        self.args = {op: [] for op in self.OPS}
 
     @staticmethod
     def _sig(args):
@@ -2319,6 +2633,7 @@ class SearchTape:
             def recorded(*args):
                 out = inner(*args)
                 self.calls[op].append((self._sig(args), out))
+                self.args[op].append(args)
                 return out
             return recorded
         return self._patched(make)
@@ -2811,6 +3126,343 @@ def phase_train_loop(dev, seg_infer):
           f"(mIoU {m_dev:.5f}, accuracy {device.getacc():.5f})")
 
 
+def scannet_pickles(root: Path, seed: int = SEED + 40, scenes: int = ENC_B):
+    """Write synthetic ScanNet pickles (the four lists data/scannet.py reads)
+    of `scenes` ENC_SCENE_N-point surface scenes with random RGB and labels
+    a split into root, and the val split's scene list. The trainer's debug
+    epoch draws one batch of crops from as many scenes."""
+    import pickle
+
+    from pointasnl_tpu_torch.data import surface_scene
+
+    rng = np.random.RandomState(seed)
+    for split in ("train", "val"):
+        xyz = [surface_scene(rng, 1, ENC_SCENE_N, extent=ENC_SCENE_EXTENT)[0]
+               for _ in range(scenes)]
+        lists = ([np.concatenate([x, (rng.rand(ENC_SCENE_N, 3) * 255).astype(np.float32)], 1)
+                  for x in xyz],
+                 [rng.randint(0, SEG_CLASSES, ENC_SCENE_N).astype(np.int32) for _ in xyz],
+                 [np.arange(ENC_SCENE_N) for _ in xyz], [ENC_SCENE_N for _ in xyz])
+        with open(root / f"scannet_{split}_rgb21c_pointid.pickle", "wb") as f:
+            for obj in lists:
+                pickle.dump(obj, f)
+    (root / "scannetv2_val.txt").write_text("".join(f"scene{i:04d}_00\n" for i in range(scenes)))
+
+
+def scannet_batch(root, B: int, N: int, seed: int, dev, split: str = "train"):
+    """B crops of N points that ScannetDataset draws (with replacement, so
+    with exact duplicates) from the pickles in root, z-rotated and
+    normalised as cli/train_scannet.py does it: points (B, N, 6), labels and
+    smpw, on dev."""
+    from pointasnl_tpu_torch.data import provider
+    from pointasnl_tpu_torch.data.scannet import ScannetDataset
+
+    rs = np.random.RandomState(seed)
+    ds = ScannetDataset(str(root), block_points=N, split=split, with_rgb=True, random_state=rs)
+    crops = [ds[i % len(ds)] for i in range(B)]
+    pts = np.stack([c[0] for c in crops]).astype(np.float32)
+    pts[..., :3] = provider.rotate_point_cloud_z(pts[..., :3], random_state=rs)
+    pts[..., :3] = provider.normalize_data(pts[..., :3])
+    return {"points": torch.from_numpy(pts).to(dev),
+            "labels": torch.from_numpy(np.stack([c[1] for c in crops])).to(dev),
+            "smpw": torch.from_numpy(np.stack([c[2] for c in crops]).astype(np.float32)).to(dev)}
+
+
+def duplicates(points) -> int:
+    """Points of a batch that repeat an earlier point of their cloud exactly."""
+    x = points[..., :3].cpu().numpy()
+    return sum(len(c) - len(np.unique(c, axis=0)) for c in x)
+
+
+def enc_levels(xyz):
+    """The xyz of the encoder-decoder's five levels: FPS of FPS of xyz."""
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import fps
+
+    levels = [xyz]
+    for n in ENC_LEVELS[1:]:
+        levels.append(geometry.gather_point(levels[-1], fps.farthest_point_sample(n, levels[-1])))
+    return levels
+
+
+def phase_encdec_kernels(dev, root) -> dict:
+    """Slice 12's kernel checks: FPS on the four levels (8192 -> 1024 in the
+    cluster design and in the block design beside it) and the twelve kNN
+    searches (among them the k16 self-kNN at 8192^2 and the k3 search
+    8192q/1024) against their plain versions, indices exact, on a
+    ScannetDataset batch (with duplicates) and on a cube; the ball query of
+    the repulsion loss on the crop's l1. Returns max |err| by kernel."""
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn
+
+    errs = {"fps": 0.0, "knn_resident": 0.0, "ball_query": 0.0}
+    crop = scannet_batch(root, ENC_B, ENC_N, 420, dev)["points"][..., :3].contiguous()
+    inputs = {f"ScannetDataset crop ({duplicates(crop)} duplicate points)": crop,
+              "cube": cube(421, ENC_B, ENC_N, SEG_SIDE, dev)}
+    for what, x in inputs.items():
+        levels = enc_levels(x)
+        for a, n in zip(levels, ENC_LEVELS[1:]):
+            want = geometry.farthest_point_sample(n, a)
+            routed = fps_design(a)
+            for design in dict.fromkeys([routed, "block"]):
+                got = fps._sample(design, n, a)
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"fps B{ENC_B} N{a.shape[1]} -> {n} on the {what} "
+                                       f"({design} design): kernel and plain differ")
+                print(f"fps B{ENC_B} N{a.shape[1]} -> {n} on the {what} ({design} design"
+                      f"{', routed' if design == routed else ''}): indices exact")
+        for si, qi, k in ENC_KNN:
+            s, q = levels[si], levels[qi]
+            err = check_knn(f"knn B{ENC_B} {q.shape[1]}q/{s.shape[1]} k{k} on the {what}",
+                            knn.knn_point(k, s, q), geometry.knn_point(k, s, q))
+            errs["knn_resident"] = max(errs["knn_resident"], err)
+        l1 = levels[1]
+        got = ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1)
+        want = geometry.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"ball query B{ENC_B} {l1.shape[1]}q/{l1.shape[1]} on the {what}: "
+                               f"kernel and plain differ")
+        print(f"ball query B{ENC_B} {l1.shape[1]}q/{l1.shape[1]} ns{REPULSION_NSAMPLE} "
+              f"r{REPULSION_RADIUS} on the {what}: indices and counts exact (mean count "
+              f"{float(got[1].float().mean()):.3f})")
+    return errs
+
+
+def encdec_model(dev, seed: int = SEED, flash: bool = False):
+    from pointasnl_tpu_torch.models import PointASNLSemSeg
+
+    return PointASNLSemSeg(SEG_CLASSES, ENC_FEATURES, nl_use_flash=flash,
+                           generator=torch.Generator().manual_seed(seed), device=dev)
+
+
+def phase_encdec(dev, root):
+    """Slice 12's train and serve paths: PointASNLSemSeg(21, feature_channel=3)
+    takes ENC_STEPS train steps at B6 x 8192 on ScannetDataset crops (Adam,
+    staircase LR, BN-momentum schedule, weight decay 1e-4, uniform weight
+    0.01, dropout keep 0.5): a step must launch FPS 4, the resident kNN 12,
+    the ball query 1 and the gather backward ENC_GATHER_BWD on
+    ENC_GATHER_PLANS plans, its losses finite; then it answers ENC_REQUESTS
+    requests through serve.make_inference_fn: FPS 4 and kNN 12 a request,
+    no ball query or gather backward, logits finite. Then one more step
+    with the gather backward's wrapper recorded: each of its gathers equal
+    to the bit to its plain version and to CPU index_add_; and two steps
+    from one state equal to the bit."""
+    from pointasnl_tpu_torch.serve import make_inference_fn
+
+    model = encdec_model(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    state, step = seg_trainer(model, ENC_B)
+    batches = [scannet_batch(root, ENC_B, ENC_N, 430 + s, dev) for s in range(ENC_STEPS)]
+    print(f"encdec slice: PointASNLSemSeg({SEG_CLASSES}, feature_channel={ENC_FEATURES}), "
+          f"{n_params} parameters; crops of B{ENC_B}x{ENC_N} hold "
+          f"{[duplicates(b['points']) for b in batches]} duplicate points")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # the earlier phases' and this model's
+    reset_counts()
+    metrics = [step(state, b) for b in batches]
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"encdec slice: {ENC_STEPS} train steps of B{ENC_B}x{ENC_N}; launches {launches}; "
+          f"peak memory {peak:.2f} GiB, {peak - held:.2f} GiB above the {held:.2f} GiB allocated "
+          f"before the steps")
+    want = {**ENC_LAUNCHES, "ball_query": 1, "gather_bwd": ENC_GATHER_BWD,
+            "gather_plan": ENC_GATHER_PLANS}
+    if launches != {k: v * ENC_STEPS for k, v in want.items()}:
+        raise RuntimeError(f"encdec train launches {launches}, expected {want} a step")
+    for s, m in enumerate(metrics):
+        m = {k: float(v) for k, v in m.items()}
+        print(f"encdec step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in m.items()))
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"encdec step {s}: a loss is not finite")
+
+    infer = make_inference_fn(model)
+    requests = [scannet_batch(root, ENC_B, ENC_N, 440 + r, dev, split="val")["points"]
+                for r in range(ENC_REQUESTS)]
+    reset_counts()
+    logits = [infer(x) for x in requests]
+    torch.cuda.synchronize()
+    serve_launches = counts()
+    print(f"encdec serve: {ENC_REQUESTS} requests of B{ENC_B}x{ENC_N}; launches "
+          f"{serve_launches}")
+    if serve_launches != {k: v * ENC_REQUESTS for k, v in ENC_LAUNCHES.items()}:
+        raise RuntimeError(f"encdec serve launches {serve_launches}, expected {ENC_LAUNCHES} "
+                           f"a request")
+    for r, out in enumerate(logits):
+        if out.shape != (ENC_B, ENC_N, SEG_CLASSES) or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"encdec request {r}: logits {tuple(out.shape)} not all finite")
+    print(f"encdec serve: logits {tuple(logits[0].shape)} finite")
+
+    gathers, plans = record_gathers(lambda: step(state, batches[0]))
+    if len(gathers) != ENC_GATHER_BWD or plans != ENC_GATHER_PLANS:
+        raise RuntimeError(f"an encdec step ran {len(gathers)} gather backwards on {plans} plans, "
+                           f"expected {ENC_GATHER_BWD} on {ENC_GATHER_PLANS}")
+    from pointasnl_tpu_torch.ops.cuda import gather_backward
+
+    for i, (dout, idx, n) in enumerate(gathers):
+        B, R, C = dout.shape
+        got = gather_backward.gather_backward(dout, idx, n)
+        plain = gather_backward.gather_backward_reference(dout, idx, n)
+        cpu = index_add(dout.cpu(), idx.cpu(), n).view(B, n, C)
+        if not (torch.equal(got, plain) and torch.equal(got.cpu(), cpu)):
+            raise RuntimeError(f"encdec gather backward {i} B{B} {R} rows -> {n} C{C}: the kernel "
+                               f"differs from its plain version or CPU index_add_")
+    print(f"encdec: the {len(gathers)} gather backwards of a step ({plans} plans) equal to the bit "
+          f"to their plain versions and CPU index_add_")
+    bad = twice_from_one_state(f"encdec train step B{ENC_B}x{ENC_N}", model, batches[1])
+    if bad:
+        raise RuntimeError(f"determinism: two encdec train steps from one state differ in "
+                           f"{len(bad)} tensors (first: {bad[0]})")
+    return state, step, infer, launches, serve_launches, gathers, batches[0]
+
+
+def phase_encdec_flash(dev, root) -> dict:
+    """One train step of PointASNLSemSeg(21, 3, nl_use_flash=True) at
+    B6 x 8192 (what --nl_flash true builds): the flash forward and backward
+    4 times each beside the dense step's launches, losses finite."""
+    model = encdec_model(dev, SEED + 1, flash=True)
+    state, step = seg_trainer(model, ENC_B)
+    batch = scannet_batch(root, ENC_B, ENC_N, 450, dev)
+    reset_counts()
+    metrics = {k: float(v) for k, v in step(state, batch).items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {**ENC_LAUNCHES, "ball_query": 1, "gather_bwd": ENC_GATHER_BWD,
+            "gather_plan": ENC_GATHER_PLANS, "flash_fwd": 4, "flash_bwd": 4}
+    print(f"encdec flash step B{ENC_B}x{ENC_N}: launches {launches}; " +
+          ", ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
+    if launches != want:
+        raise RuntimeError(f"encdec flash step launches {launches}, expected {want}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError("encdec flash step: a loss is not finite")
+    return launches
+
+
+def phase_scannet_clis(dev, root):
+    """The ScanNet CLIs on the card, in this process: cli.train_scannet
+    --debug at its defaults (B6 x 8192, two epochs of one step, a chopped
+    and a whole-scene eval, a checkpoint an epoch), then cli.test_scannet
+    with one vote on one scene (the sliding windows: a forward's launches
+    each B6 batch of windows), and with --single_pass true --nl_block_size
+    4096 on the scene of ENC_SCENE_N points (ENC_SINGLE_PASS_LAUNCHES);
+    each mIoU in [0, 1]. The single pass's searches are recorded and held
+    to their plain versions (check_single_pass). Returns the launches of
+    each test_scannet run, the single pass's searches and max |err| by
+    kernel."""
+    from pointasnl_tpu_torch.cli import test_scannet, train_scannet
+
+    logs, dump = root / "logs", root / "dump"
+    t0 = time.perf_counter()
+    best = train_scannet.main(["--data", str(root), "--log_dir", str(logs), "--debug"])
+    t1 = time.perf_counter()
+    if not (0.0 <= best <= 1.0 and (logs / "latest" / "state.pt").is_file()):
+        raise RuntimeError(f"train_scannet: best mIoU {best}, or no latest checkpoint")
+    print(f"cli train_scannet --debug (B6x8192): best chopped mIoU {best:.5f}, latest "
+          f"checkpoint written, {t1 - t0:.1f} s")
+    runs = {"sliding windows": [], "single pass": ["--single_pass", "true",
+                                                   "--nl_block_size", "4096"]}
+    launches, tapes = {}, {}
+    for what, extra in runs.items():
+        tapes[what] = tape = SearchTape()
+        reset_counts()
+        t0 = time.perf_counter()
+        with tape.recording():
+            miou = test_scannet.main(["--data", str(root), "--model_path", str(logs), "--ckpt",
+                                      "latest", "--dump_dir", str(dump), "--num_votes", "1",
+                                      "--max_scenes", "1"] + extra)
+        torch.cuda.synchronize()
+        launches[what] = got = counts()
+        forwards = len(tape.calls["farthest_point_sample"]) / ENC_LAUNCHES["fps"]
+        print(f"cli test_scannet ({what}, 1 vote, 1 scene of {ENC_SCENE_N} points): mIoU "
+              f"{miou:.5f}, {time.perf_counter() - t0:.1f} s; {forwards:g} forwards; launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        if not 0.0 <= miou <= 1.0:
+            raise RuntimeError(f"test_scannet ({what}): mIoU {miou}")
+        want = ({k: v * int(forwards) for k, v in ENC_LAUNCHES.items()} if what == "sliding windows"
+                else ENC_SINGLE_PASS_LAUNCHES if forwards == 1 else None)
+        if got != want or forwards != int(forwards):
+            raise RuntimeError(f"test_scannet ({what}): {forwards:g} forwards launched {got}, "
+                               f"expected {ENC_SINGLE_PASS_LAUNCHES if want is None else want}")
+    searches, errs = check_single_pass(tapes["single pass"])
+    return launches, searches, errs
+
+
+def check_single_pass(tape):
+    """Hold each search of test_scannet --single_pass, recorded on `tape`,
+    against its plain version on the same inputs, at the shapes the pass
+    gave it: its four FPS calls and its twelve kNN calls (each routed as
+    dispatch.knn_route routes it), indices exact and d2 within 1e-6
+    relative. Returns ([(kernel, k, support, query)] of the kNN calls, max
+    |d2 err| by kernel)."""
+    from pointasnl_tpu_torch.ops import dispatch, geometry
+
+    for (_, got), (npoint, xyz) in zip(tape.calls["farthest_point_sample"],
+                                       tape.args["farthest_point_sample"]):
+        if not torch.equal(got, geometry.farthest_point_sample(npoint, xyz)):
+            raise RuntimeError(f"fps B1 N{xyz.shape[1]} -> {npoint} (test_scannet "
+                               f"--single_pass): kernel and plain differ")
+        print(f"fps B1 N{xyz.shape[1]} -> {npoint} (test_scannet --single_pass, {fps_design(xyz)} "
+              f"design): indices exact")
+    searches, errs = [], {"knn_resident": 0.0, "knn_spatial": 0.0}
+    for (_, got), (k, s, q) in zip(tape.calls["knn_point"], tape.args["knn_point"]):
+        name = "knn_" + dispatch.knn_route(s.shape[1], k)
+        self_query = " (self)" if q is s else ""
+        err = check_knn(f"{name} B1 {q.shape[1]}q/{s.shape[1]} k{k}{self_query} (test_scannet "
+                        f"--single_pass)", got, geometry.knn_point(k, s, q))
+        errs[name] = max(errs[name], err)
+        searches.append((name, k, s, q))
+        torch.cuda.empty_cache()
+    return searches, errs
+
+
+def slice12(dev, mark):
+    """Slice 12's checks, paths and CLIs. Returns what the timing and the
+    kernels line need."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="scannet_")
+    root = Path(tmp.name)
+    scannet_pickles(root)
+    errs = phase_encdec_kernels(dev, root)
+    mark("slice 12 kernel checks")
+    enc = phase_encdec(dev, root)
+    phase_encdec_card_vs_cpu(dev, root)
+    flash_launches = phase_encdec_flash(dev, root)
+    mark("slice 12 train, serve, card vs CPU, determinism and flash step")
+    cli_launches, single_pass, cli_errs = phase_scannet_clis(dev, root)
+    for name, e in cli_errs.items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    mark("slice 12 CLIs and the single pass's searches")
+    levels = enc_levels(scannet_batch(root, ENC_B, ENC_N, 460, dev)["points"][..., :3]
+                        .contiguous())
+    return {"tmp": tmp, "errs": errs, "state": enc[0], "step": enc[1], "infer": enc[2],
+            "launches": enc[3], "serve_launches": enc[4], "gathers": enc[5], "batch": enc[6],
+            "flash_launches": flash_launches, "levels": levels, "cli_launches": cli_launches,
+            "single_pass": single_pass}
+
+
+def time_encdec(card, enc):
+    """Slice 12's step and request times: the B6 x 8192 train step and
+    serve request (p50, p90 by CUDA events, peak memory) and a profiler
+    window over 3 steps and one over 3 requests (device-busy share, device
+    activities a call)."""
+    state, step, infer, batch = enc["state"], enc["step"], enc["infer"], enc["batch"]
+    pts = batch["points"]
+    out = time_steps(card, {
+        f"encdec train step B{ENC_B}x{ENC_N}": (lambda: step(state, batch), ENC_B * ENC_N),
+        f"encdec serve request B{ENC_B}x{ENC_N}": (lambda: infer(pts), ENC_B * ENC_N)}, reps=5)
+    per_step = {"fps": 4, "knn": 12, "knn_spatial": 0, "knn_streaming": 0, "ball_query": 1,
+                "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": ENC_GATHER_BWD,
+                "gather_plan": plan_kernels(enc["gathers"]), "gather_bwd_bf16": 0}
+    profile_window(lambda: step(state, batch), 3, per_step, card, "encdec train steps",
+                   "profile_encdec_step.json")
+    profile_window(lambda: infer(pts), 3, {**per_step, "ball_query": 0, "gather_bwd": 0,
+                                           "gather_plan": 0}, card, "encdec serve requests",
+                   "profile_encdec_serve.json")
+    return out
+
+
 def slice5(dev, card, mark):
     """Slice 5's checks, requests and kernel times: (launches a run of its
     requests, kernel rows, max |err| by kernel)."""
@@ -2861,9 +3513,12 @@ def main() -> int:
     gathers_bf16 = phase_gather_bf16(dev)
     errs["gather_bwd_bf16"] = 0.0  # equal, or phase_gather_bf16 raised
     mark("slice 11: cls train, bfloat16 steps and the bfloat16 gather backward")
+    enc = slice12(dev, mark)
+    for name, e in enc["errs"].items():
+        errs[name] = max(errs[name], e)
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     print(f"card before timing: {clocks} = {smi(clocks)}")
-    rows = time_kernels(dev, card, gathers, gathers_bf16)
+    rows = time_kernels(dev, card, gathers, gathers_bf16, enc)
     mark("kernel timing")
     time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x,
                flash_state, flash_step, flash_infer,
@@ -2880,6 +3535,9 @@ def main() -> int:
                  seg16_launches, gathers_bf16, seg16_extra, (seg_state, seg_step))
     phase_train_loop(dev, seg_infer)
     mark("slice 11: step times and the train loop")
+    time_encdec(card, enc)
+    enc["tmp"].cleanup()
+    mark("slice 12: step and request times")
     records = []
     for name, meta in KERNELS.items():
         # ms, call_ms, plain_ms, bound_ms and library_ms sum the shapes of
@@ -2899,7 +3557,12 @@ def main() -> int:
                    "whole_scene_2228224": big_launches[name],
                    "cls_train": cls_train_launches["float32"][name] * CLS_LEARN_STEPS,
                    "cls_train_bf16": cls_train_launches["bfloat16"][name] * CLS_LEARN_STEPS,
-                   "seg_train_bf16": seg16_launches[name] * SEG_STEPS}
+                   "seg_train_bf16": seg16_launches[name] * SEG_STEPS,
+                   "seg_encdec_train": enc["launches"][name],
+                   "seg_encdec_serve": enc["serve_launches"][name],
+                   "seg_encdec_flash_train": enc["flash_launches"][name],
+                   "seg_encdec_sliding_windows": enc["cli_launches"]["sliding windows"][name],
+                   "seg_encdec_single_pass": enc["cli_launches"]["single pass"][name]}
         lib = [r["library_ms"] for r in shapes]
         records.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],

@@ -43,8 +43,8 @@ class PointASNLCls(nn.Module):
                                               as_neighbor=as_neighbor[0], generator=g, **nl)
         self.layer2 = PointASNLSetAbstraction(128, 128, 64, (128, 128, 256),
                                               as_neighbor=as_neighbor[1], generator=g, **nl)
-        self.layer3_1 = PointNetSAModule(128, (128, 256, 512), generator=g)
-        self.layer3_2 = PointNetSAModule(256, (256, 512, 1024), generator=g)
+        self.layer3_1 = PointNetSAModule(128, (128, 256, 512), group_all=True, generator=g)
+        self.layer3_2 = PointNetSAModule(256, (256, 512, 1024), group_all=True, generator=g)
         self.fc1 = FullyConnected(1024 + 512, 512, bn=True, generator=g)
         self.dp1 = Dropout(keep_prob=0.4)
         self.fc2 = FullyConnected(512, 256, bn=True, generator=g)

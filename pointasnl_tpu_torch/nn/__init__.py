@@ -1,7 +1,7 @@
 """PyTorch module library: TF-layer equivalents + the PointASNL / PointNet++ cells."""
 
 from pointasnl_tpu_torch.nn import precision
-from pointasnl_tpu_torch.nn.layers import BatchNorm, Dense, Dropout, FullyConnected, PointConv
+from pointasnl_tpu_torch.nn.layers import MLP, BatchNorm, Dense, Dropout, FullyConnected, PointConv
 from pointasnl_tpu_torch.nn.losses import (
     l2_regularization,
     softmax_cross_entropy,
@@ -9,12 +9,18 @@ from pointasnl_tpu_torch.nn.losses import (
 )
 from pointasnl_tpu_torch.nn.pointasnl import (
     AdaptiveSampling,
+    PointASNLDecodingLayer,
     PointASNLSetAbstraction,
     PointNonLocalCell,
     SampleWeights,
     WeightNetHidden,
 )
-from pointasnl_tpu_torch.nn.pointnet import PointNetFPModule, PointNetSAModule, sample_and_group_all
+from pointasnl_tpu_torch.nn.pointnet import (
+    PointNetFPModule,
+    PointNetSAModule,
+    sample_and_group,
+    sample_and_group_all,
+)
 
 __all__ = [
     "AdaptiveSampling",
@@ -22,6 +28,8 @@ __all__ = [
     "Dense",
     "Dropout",
     "FullyConnected",
+    "MLP",
+    "PointASNLDecodingLayer",
     "PointASNLSetAbstraction",
     "PointConv",
     "PointNetFPModule",
@@ -31,6 +39,7 @@ __all__ = [
     "WeightNetHidden",
     "l2_regularization",
     "precision",
+    "sample_and_group",
     "sample_and_group_all",
     "softmax_cross_entropy",
     "weighted_softmax_cross_entropy",

@@ -21,6 +21,8 @@
   float32 weight are cast to bfloat16 and the output is bfloat16.
 - ``Dropout`` draws its mask from the ``torch.Generator`` the caller passes,
   as flax draws it from the ``dropout`` key, never from a global RNG.
+- ``MLP`` is a stack of ``PointConv``s ``conv{i}`` (no model calls it; it is
+  kept for the JAX package's API).
 """
 
 from __future__ import annotations
@@ -164,4 +166,29 @@ class FullyConnected(nn.Module):
             x = self.bn(x, momentum=bn_momentum)
         if self.activation is not None:
             x = self.activation(x)
+        return x
+
+
+class MLP(nn.Module):
+    """A stack of PointConvs ``conv{i}`` (a per-point MLP) of widths
+    `features`; `last_activation` and `last_bn` set the last one's, as the
+    JAX package's ``MLP`` (layers.py:267-289). Its ``dtype`` has no
+    counterpart here: ``nn.precision`` sets the compute dtype of every
+    Dense."""
+
+    def __init__(self, in_features: int, features, *, bn: bool = True,
+                 activation: Activation = F.relu, last_activation: Activation = F.relu,
+                 last_bn: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        width = in_features
+        for i, f in enumerate(features):
+            last = i == len(features) - 1
+            self.add_module(f"conv{i}", PointConv(
+                width, f, bn=last_bn if last else bn,
+                activation=last_activation if last else activation, generator=generator))
+            width = f
+
+    def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
+        for conv in self.children():
+            x = conv(x, bn_momentum=bn_momentum)
         return x

@@ -11,12 +11,13 @@ module names and the same reference quirks:
   - the ``bmkc,bmkw->bmcw`` product is flattened channel-major before
     ``after_conv``.
 
-Ported so far: the ``mode="dot"`` non-local cell, dense, with K/V streamed
-in blocks (``kv_block_size``) or through the flash kernels (``use_flash``),
-and the SA cell on both its paths (down-sampling, N != npoint, and
-same-resolution, N == npoint), with kNN or ball grouping and the
-``fps_idx`` / ``knn_idx`` hints. The concat mode, the ``support_*``
-decoupling of sharded whole-scene inference and the decoding layer wait.
+Ported: the non-local cell in ``mode="dot"``, dense, with K/V streamed in
+blocks (``kv_block_size``) or through the flash kernels (``use_flash``), and
+in ``mode="concat"``; the SA cell on both its paths (down-sampling,
+N != npoint, and same-resolution, N == npoint), with kNN or ball grouping
+and the ``fps_idx`` / ``knn_idx`` hints; and the decoding layer of the
+encoder-decoder model (``PointASNLDecodingLayer``). The ``support_*``
+decoupling of sharded whole-scene inference waits.
 """
 
 from __future__ import annotations
@@ -122,32 +123,46 @@ class AdaptiveSampling(nn.Module):
 
 class PointNonLocalCell(nn.Module):
     """Non-local attention from sampled queries over all input points
-    (utils/pointasnl_util.py:175-219), dense ``mode="dot"``: K/V from the
-    ``in_channels`` features of all points, Q from the ``query_channels``
-    features of the sampled set, softmax(QK^T / sqrt(bottleneck)) V, then the
-    output projection. With ``kv_block_size`` the attention streams K/V in
-    blocks of that size (``blockwise_attention``): O(M * block) memory
-    instead of the (M, N) map, for whole scenes. Otherwise ``use_flash``
-    takes the fused flash attention (``ops.flash_attention``), whose scale
-    multiplies by float32(1 / sqrt(bottleneck)) as JAX's flash path does.
-    The order is JAX's: ``kv_block_size``, then ``use_flash``, then dense.
-    Unlike JAX, ``use_flash`` is never rerouted to blockwise past a VMEM
-    envelope (``fits_vmem``): the CUDA kernels stream K/V from device memory
-    at any N, and the two paths agree to rounding."""
+    (utils/pointasnl_util.py:175-219): K/V from the ``in_channels`` features
+    of all points, Q from the ``query_channels`` features of the sampled
+    set, attention weights over the points, then the output projection.
+
+    ``mode="dot"`` scores softmax(QK^T / sqrt(bottleneck)). With
+    ``kv_block_size`` the attention streams K/V in blocks of that size
+    (``blockwise_attention``): O(M * block) memory instead of the (M, N)
+    map, for whole scenes. Otherwise ``use_flash`` takes the fused flash
+    attention (``ops.flash_attention``), whose scale multiplies by
+    float32(1 / sqrt(bottleneck)) as JAX's flash path does. The order is
+    JAX's: ``kv_block_size``, then ``use_flash``, then dense. Unlike JAX,
+    ``use_flash`` is never rerouted to blockwise past a VMEM envelope
+    (``fits_vmem``): the CUDA kernels stream K/V from device memory at any
+    N, and the two paths agree to rounding.
+
+    ``mode="concat"`` scores each (query, point) pair by a PointConv to one
+    channel, ``conv_attention_map`` (BN over the B * M * N pairs, ReLU), on
+    the (B, M, N, 2 * bottleneck) concat of K and Q, then a softmax over the
+    points: plain PyTorch, dense, as JAX computes it outside any kernel.
+    ``kv_block_size`` and ``use_flash`` do not apply to it (JAX tests
+    ``mode == "dot"`` in both branches)."""
 
     def __init__(self, in_channels: int, query_channels: int, bottleneck: int,
                  out_channels: int, *, bn: bool = True, scaled: bool = True,
-                 kv_block_size: Optional[int] = None, use_flash: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 mode: str = "dot", kv_block_size: Optional[int] = None,
+                 use_flash: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
+        if mode not in ("dot", "concat"):
+            raise ValueError(f"unknown non-local mode: {mode!r}")
         self.bottleneck = bottleneck
         self.scaled = scaled
-        self.kv_block_size = kv_block_size
-        self.use_flash = use_flash
+        self.mode = mode
+        self.kv_block_size = kv_block_size if mode == "dot" else None
+        self.use_flash = use_flash and mode == "dot"
         self.conv_kv = PointConv(in_channels, bottleneck * 2, bn=bn, activation=None,
                                  generator=generator)
         self.conv_query = PointConv(query_channels, bottleneck, bn=bn, activation=None,
                                     generator=generator)
+        if mode == "concat":
+            self.conv_attention_map = PointConv(bottleneck * 2, 1, bn=bn, generator=generator)
         self.conv_back_project = PointConv(bottleneck, out_channels, bn=bn,
                                            generator=generator)
 
@@ -163,9 +178,15 @@ class PointNonLocalCell(nn.Module):
         if self.use_flash:
             out = flash_attention(q, k, v, self.scaled)
             return self.conv_back_project(out, bn_momentum=bn_momentum)
-        attn = torch.einsum("bmc,bnc->bmn", q, k)
-        if self.scaled:  # bfloat16 scores promote to float32 here, as in JAX
-            attn = scale_scores(attn, self.bottleneck)
+        if self.mode == "dot":
+            attn = torch.einsum("bmc,bnc->bmn", q, k)
+            if self.scaled:  # bfloat16 scores promote to float32 here, as in JAX
+                attn = scale_scores(attn, self.bottleneck)
+        else:
+            B, M, N = q.shape[0], q.shape[1], k.shape[1]
+            merged = torch.cat([k[:, None].expand(B, M, N, self.bottleneck),
+                                q[:, :, None].expand(B, M, N, self.bottleneck)], dim=-1)
+            attn = self.conv_attention_map(merged, bn_momentum=bn_momentum)[..., 0]
         attn = torch.softmax(attn, dim=-1)
         out = promoted_einsum("bmn,bnc->bmc", attn, v)
         return self.conv_back_project(out, bn_momentum=bn_momentum)
@@ -273,3 +294,77 @@ class PointASNLSetAbstraction(nn.Module):
             new_point = new_point + new_nonlocal_point
         new_point = self.aggregation(new_point, bn_momentum=bn_momentum)
         return new_xyz, new_point
+
+
+class PointASNLDecodingLayer(nn.Module):
+    """The decoding (feature propagation) cell of the encoder-decoder model
+    (utils/pointasnl_util.py:294-351, JAX ``nn/pointasnl.py:365-441``):
+
+      1. the 3 nearest of xyz2 to each point of xyz1 (``ops.three_nn``),
+         weighted by 1 / max(d^2, 1e-10), normalised over the three;
+      2. with ``NL``, a non-local refinement of the sparse features points2,
+         its queries points2 and its keys the dense points1 (``mode``,
+         bottleneck max(32, C2));
+      3. their interpolation to xyz1 (``ops.three_interpolate``);
+      4. a self-kNN grouping of ``nsample`` on xyz1 (raw grouped xyz
+         prepended with ``use_xyz``), the grouped xyz normalised to the
+         query;
+      5. ``decode_weight_net``'s kernel on it, the ``bnkc,bnkw->bncw``
+         product flattened channel-major into ``decode_after_conv``
+         (mlp[0]);
+      6. the skip concat with points1, then ``conv_{i}`` over mlp[1:].
+
+    ``in_channels1`` is C1 of the dense features points1 (0 where the call
+    passes None), ``in_channels2`` C2 of the sparse points2.
+    """
+
+    def __init__(self, in_channels1: int, in_channels2: int, nsample: int,
+                 mlp: Sequence[int], *, NL: bool = False, bn: bool = True,
+                 use_xyz: bool = True, use_knn: bool = True, radius: Optional[float] = None,
+                 mode: str = "concat", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if NL and not in_channels1:
+            raise ValueError("the non-local refinement takes its keys from points1")
+        self.nsample = nsample
+        self.NL = NL
+        self.use_xyz = use_xyz
+        self.use_knn = use_knn
+        self.radius = radius if radius is not None else 0.2
+        g = generator
+        if NL:
+            self.add_module("nonlocal", PointNonLocalCell(
+                in_channels1, in_channels2, max(32, in_channels2), in_channels2, bn=bn,
+                mode=mode, generator=g))
+        self.decode_weight_net = WeightNetHidden(3, (32,), generator=g)
+        grouped = in_channels2 + 3 * use_xyz
+        self.decode_after_conv = PointConv(grouped * 32, mlp[0], bn=bn, generator=g)
+        self.convs = []
+        width = mlp[0] + in_channels1
+        for i, c in enumerate(mlp[1:], start=1):
+            conv = PointConv(width, c, bn=bn, generator=g)
+            self.add_module(f"conv_{i}", conv)
+            self.convs.append(conv)
+            width = c
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, points1: Optional[torch.Tensor],
+                points2: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
+        if self.NL:  # the weights of step 1 depend on xyz alone: JAX computes them first
+            points2 = points2 + getattr(self, "nonlocal")(points1, points2,
+                                                          bn_momentum=bn_momentum)
+        interpolated = ops.three_interpolate_idw(xyz1, xyz2, points2)
+
+        grouped_xyz, grouped_feature, _ = ops.grouping(
+            interpolated, self.nsample, xyz1, xyz1, use_xyz=self.use_xyz,
+            use_knn=self.use_knn, radius=self.radius)
+        grouped_xyz = grouped_xyz - xyz1[:, :, None, :]
+
+        weight_k = self.decode_weight_net(grouped_xyz, bn_momentum=bn_momentum)  # (B, N, K, 32)
+        new_points = promoted_einsum("bnkc,bnkw->bncw", grouped_feature, weight_k)
+        new_points = new_points.reshape(*new_points.shape[:2], -1)
+        new_points = self.decode_after_conv(new_points, bn_momentum=bn_momentum)
+
+        if points1 is not None:
+            new_points = torch.cat([new_points, points1], dim=-1)
+        for conv in self.convs:
+            new_points = conv(new_points, bn_momentum=bn_momentum)
+        return new_points

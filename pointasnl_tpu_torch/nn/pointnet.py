@@ -1,10 +1,11 @@
 """PointNet++ set abstraction, the PyTorch counterpart of
 ``pointasnl_tpu/nn/pointnet.py``.
 
-Ported so far: the group-all path that the classifier's two heads run
-(utils/pointnet_util.py:59-154), with every pooling mode, and feature
+Ported: set abstraction (utils/pointnet_util.py:22-154) over the whole
+cloud, as the classifier's two heads run it, or over FPS samples with ball
+or kNN grouping (``sample_and_group``), with every pooling mode; and feature
 propagation (``PointNetFPModule``), the decoder of ``pointasnl_sem_seg_res``.
-The sampled (ball / kNN) grouping waits for a model that runs it.
+The multi-scale ``PointNetSAModuleMSG`` is not ported: no model uses it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,27 @@ from torch import nn
 
 from pointasnl_tpu_torch import ops
 from pointasnl_tpu_torch.nn.layers import PointConv
+
+
+def sample_and_group(npoint: int, radius: Optional[float], nsample: int, xyz: torch.Tensor,
+                     points: Optional[torch.Tensor], knn: bool = False, use_xyz: bool = True):
+    """FPS, then ball or kNN grouping (utils/pointnet_util.py:22-56). Unlike
+    the PointASNL grouping, the grouped xyz is normalised to its centre
+    BEFORE the feature concat. Returns (new_xyz, new_points, idx,
+    grouped_xyz)."""
+    new_xyz = ops.gather_point(xyz, ops.farthest_point_sample(npoint, xyz))
+    if knn:
+        _, idx = ops.knn_point(nsample, xyz, new_xyz)
+    else:
+        idx, _ = ops.query_ball_point(radius, nsample, xyz, new_xyz)
+    grouped_xyz = ops.group_point(xyz, idx) - new_xyz[:, :, None, :]
+    if points is None:
+        new_points = grouped_xyz
+    elif use_xyz:
+        new_points = torch.cat([grouped_xyz, ops.group_point(points, idx)], dim=-1)
+    else:
+        new_points = ops.group_point(points, idx)
+    return new_xyz, new_points, idx, grouped_xyz
 
 
 def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor],
@@ -35,19 +57,31 @@ def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor],
 
 
 class PointNetSAModule(nn.Module):
-    """PointNet++ set abstraction over the whole cloud (group_all), with the
-    pooling modes max, avg, weighted_avg and max_and_avg.
+    """PointNet++ set abstraction (utils/pointnet_util.py:87-154): over the
+    whole cloud (``group_all``), or over ``npoint`` FPS samples, each
+    grouping ``nsample`` points within ``radius`` (or its ``knn``
+    nearest); then ``conv{i}``, the pooling (max, avg, weighted_avg or
+    max_and_avg) and ``conv_post_{i}``.
 
     ``in_channels`` is C of the (B, N, C) input features, 0 for none.
     """
 
     def __init__(self, in_channels: int, mlp: Sequence[int], *,
-                 mlp2: Optional[Sequence[int]] = None, bn: bool = True,
-                 pooling: str = "max", use_xyz: bool = True,
+                 npoint: Optional[int] = None, radius: Optional[float] = None,
+                 nsample: Optional[int] = None, mlp2: Optional[Sequence[int]] = None,
+                 group_all: bool = False, bn: bool = True, pooling: str = "max",
+                 knn: bool = False, use_xyz: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if pooling not in ("max", "avg", "weighted_avg", "max_and_avg"):
             raise ValueError(f"unknown pooling: {pooling!r}")
+        if not group_all and (npoint is None or nsample is None
+                              or (radius is None and not knn)):
+            raise ValueError("a sampled set abstraction takes npoint, nsample and a radius "
+                             "(or knn=True); or pass group_all=True")
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.group_all = group_all
+        self.knn = knn
         self.pooling = pooling
         self.use_xyz = use_xyz
         self.convs = []
@@ -68,7 +102,12 @@ class PointNetSAModule(nn.Module):
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 bn_momentum=0.9) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        new_xyz, new_points, idx, grouped_xyz = sample_and_group_all(xyz, points, self.use_xyz)
+        if self.group_all:
+            new_xyz, new_points, idx, grouped_xyz = sample_and_group_all(xyz, points,
+                                                                         self.use_xyz)
+        else:
+            new_xyz, new_points, idx, grouped_xyz = sample_and_group(
+                self.npoint, self.radius, self.nsample, xyz, points, self.knn, self.use_xyz)
         for conv in self.convs:
             new_points = conv(new_points, bn_momentum=bn_momentum)
 

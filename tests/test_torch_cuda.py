@@ -22,7 +22,7 @@ import torch
 
 from pointasnl_tpu_torch import ops
 from pointasnl_tpu_torch.data import surface_scene
-from pointasnl_tpu_torch.models import PointASNLCls, PointASNLSemSegRes
+from pointasnl_tpu_torch.models import PointASNLCls, PointASNLSemSeg, PointASNLSemSegRes
 from pointasnl_tpu_torch.ops import geometry as tg
 from pointasnl_tpu_torch.ops import flash_attention as tf
 from pointasnl_tpu_torch.ops.cuda import ball_query as cuda_ball
@@ -806,6 +806,42 @@ def test_seg_train_step_and_forward_launch_counts(dev, monkeypatch):
     logits = make_inference_fn(model)(batch["points"])
     torch.cuda.synchronize()
     assert _launched(before) == (4, 11, 0, 0, 0) and cuda_gather.launches == g0
+    assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())
+
+
+def test_encdec_train_step_and_forward_launch_counts(dev, monkeypatch):
+    """The encoder-decoder's train step on a crop drawn with replacement
+    (duplicate points) launches FPS 4, kNN 4 + 4 (self-kNN) + 4 (three_nn)
+    and the ball query 1 time, the gather backward 18 times on 12 plans
+    (tests/test_torch_sem_seg.py counts them on the CPU), and never calls
+    segments; the serve forward the same minus the ball query and the
+    gathers' kernels."""
+
+    def refuse(idx, n):
+        raise AssertionError("a gather backward on the card called segments")
+
+    monkeypatch.setattr(cuda_gather, "segments", refuse)
+    model = PointASNLSemSeg(21, 3, generator=torch.Generator().manual_seed(0), device=dev)
+    state = TrainState(model, make_optimizer("adam", staircase_lr_schedule(1e-3, 2, 200000, 0.7),
+                                             model.parameters()))
+    step = make_train_step(bn_schedule=bn_momentum_schedule(2, 200000), task="seg",
+                           uniform_weight=0.01)
+    rng = np.random.RandomState(1)
+    base = rng.rand(2, 1500, 6).astype(np.float32)
+    crop = np.stack([b[rng.randint(0, 1500, 2048)] for b in base])
+    batch = {"points": torch.from_numpy(crop).to(dev),
+             "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
+             "smpw": torch.ones(2, 2048, device=dev)}
+    before, g0, p0 = _counts(), cuda_gather.launches, cuda_gather.plan_launches
+    metrics = step(state, batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert _launched(before) == (4, 12, 0, 1, 0)
+    assert (cuda_gather.launches - g0, cuda_gather.plan_launches - p0) == (18, 12)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    before, g0 = _counts(), cuda_gather.launches
+    logits = make_inference_fn(model)(batch["points"])
+    torch.cuda.synchronize()
+    assert _launched(before) == (4, 12, 0, 0, 0) and cuda_gather.launches == g0
     assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())
 
 

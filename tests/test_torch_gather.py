@@ -178,7 +178,7 @@ def test_every_differentiable_gather_of_a_seg_step_goes_through_dispatch(monkeyp
     torch.gather with a gradient runs. 19 of its 22 gathers feed the loss,
     so the card launches the backward kernel 19 times a step, on the plans
     of SEG_STEP_SORTS index tensors."""
-    routed, stray, backward = [], [], []
+    routed, stray, backward, alive = [], [], [], []
     depth = [0]
     gather, route = torch.gather, dispatch.gather_point
 
@@ -202,6 +202,7 @@ def test_every_differentiable_gather_of_a_seg_step_goes_through_dispatch(monkeyp
         if points.requires_grad and torch.is_grad_enabled():
             routed.append((tuple(points.shape), tuple(idx.shape)))
             base = idx if idx._base is None else idx._base  # what plan() keys on
+            alive.append(base)  # the plain gather saves a copy: keep each id() unique
             points = Backward.apply(points, (id(base), points.shape[1], tuple(idx.shape),
                                              idx.stride(), idx.storage_offset()))
         depth[0] += 1

@@ -91,7 +91,8 @@ def test_group_all_pointnet_sa_matches_jax(pooling, mlp2, C, use_xyz):
     jout, tout, _, _ = run_both(
         jpn.PointNetSAModule(mlp=(16, 24), group_all=True, pooling=pooling, mlp2=mlp2,
                              use_xyz=use_xyz),
-        tpn.PointNetSAModule(C, (16, 24), pooling=pooling, mlp2=mlp2, use_xyz=use_xyz),
+        tpn.PointNetSAModule(C, (16, 24), group_all=True, pooling=pooling, mlp2=mlp2,
+                             use_xyz=use_xyz),
         [xyz, points], training=False)
     for t, j in zip(tout, jout):
         assert_close(t, j)

@@ -38,7 +38,11 @@ def test_port_sources_found():
     names = {p.relative_to(PKG.parent).as_posix() for p in _port_sources()}
     assert {"pointasnl_tpu_torch/ops/dispatch.py", "pointasnl_tpu_torch/models/cls.py",
             "pointasnl_tpu_torch/ops/cuda/knn_streaming.py", "chip_smoke.py",
-            "scripts/torch_step_turns.py", "scripts/torch_flash_tf32_passes.py"} <= names
+            "scripts/torch_step_turns.py", "scripts/torch_flash_tf32_passes.py",
+            "pointasnl_tpu_torch/models/sem_seg.py", "pointasnl_tpu_torch/cli/train_scannet.py",
+            "pointasnl_tpu_torch/cli/test_scannet.py", "pointasnl_tpu_torch/cli/seg_common.py",
+            "pointasnl_tpu_torch/data/scannet.py", "pointasnl_tpu_torch/data/provider.py",
+            "pointasnl_tpu_torch/utils/config.py", "pointasnl_tpu_torch/utils/logging.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.relative_to(PKG.parent).as_posix())
@@ -97,7 +101,7 @@ def test_kernel_build_key_changes_with_a_shared_header(tmp_path, monkeypatch):
     assert [p.name for p in _build._sources()] == [p.name for p in sorted(_build.CSRC.glob("*.cu"))]
 
 
-@pytest.mark.parametrize("name", ["pointasnl_cls", "pointasnl_sem_seg_res"])
+@pytest.mark.parametrize("name", ["pointasnl_cls", "pointasnl_sem_seg", "pointasnl_sem_seg_res"])
 def test_models_default_to_the_card(name, monkeypatch):
     """Without a card, a model built with no device raises; it never stays on
     the CPU. device="cpu" is the explicit request."""
