@@ -180,6 +180,28 @@ Phases (any failure raises, and the script exits non-zero with no result):
      points. Timing adds the path's kernels (device, call, plain and bound
      ms at each shape: path seg_encdec), the step and the request (p50,
      p90, peak memory, in turns) and a profiler window over 3 of each.
+ 16. Slice 13, run after phase 15 and before the timing: the grid-sampled
+     recipes' four drivers in this process, on synthetic data written to a
+     temporary directory (no download). ScanNet grid (GRID_SCENES surface
+     scenes of 10^6 points in a 6 m room, with rgb, NYU40 labels, vert_ind
+     and meshes): ``cli.train_scannet_grid --debug --num_point 10240
+     --in_radius 2`` (B4, the 66.6 % recipe), the same with ``--nl_flash
+     true``, then ``cli.test_scannet_grid --split validation --max_rounds
+     1``. SemanticKITTI grid (sequences 00 and 08 of 4 scans of 122880
+     points): ``cli.train_semantic_kitti_grid --prepare_data --debug`` at its
+     defaults (B4 x 10240, kNN crops), then ``cli.test_semantic_kitti_grid
+     --test_id 8 --max_rounds 1``. Each train step must launch FPS 4, the
+     resident kNN 11, the ball query 1 and the gather backward 19 on 12
+     plans (and under --nl_flash the flash forward and backward 4 each), each
+     forward FPS 4 and kNN 11, and each run exactly that; each trainer's
+     first step's searches are held to their plain versions (check_tape);
+     each mIoU in [0, 100], a latest checkpoint the tester rebuilds from
+     args.txt, the KITTI tester's .label files. Printed: per scene the
+     subsampled points, the crops' ball (or kNN) sizes and how many were
+     padded with duplicates, the searches' host ms; the steps' times inside
+     each trainer (CUDA events, p50); the share of each epoch's train loop
+     spent waiting on the Prefetcher; each pipeline's host ms for a batch
+     on its own.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
@@ -444,6 +466,27 @@ ENC_INPUT_ATOL, ENC_FLIPS_MAX, ENC_IDW_ATOL = 1e-4, 4, 1e-3
 FLASH_ENC = [(ENC_B, ENC_N // 8, ENC_N, 32, 32), (ENC_B, ENC_N // 32, ENC_N // 8, 32, 32),
              (ENC_B, ENC_N // 128, ENC_N // 32, 64, 64),
              (ENC_B, ENC_N // 256, ENC_N // 128, 128, 128)]
+
+# Slice 13: the grid-sampled recipes' four drivers, in this process, on
+# synthetic data written to a temporary directory. ScanNet grid (the
+# 66.6 % recipe, README: --num_point 10240 --in_radius 2, B4, RGB):
+# GRID_SCENES surface scenes of GRID_SCENE_N points in a GRID_SCENE_EXTENT m
+# room (surface_scene), the last one listed for validation, each with a mesh
+# of every GRID_MESH_EVERY-th point. SemanticKITTI grid (B4 x 10240, kNN
+# crops of 10240 + 1024 points, no features): sequences 00 and 08 of
+# KITTI_SCANS scans, each of KITTI_RINGS rings of KITTI_AZIMUTHS points
+# (ranges to KITTI_MAX_RANGE m, remission, raw label ids).
+GRID_B, GRID_N, GRID_RADIUS = 4, 10240, 2.0
+GRID_SCENES, GRID_SCENE_N, GRID_SCENE_EXTENT, GRID_MESH_EVERY = 4, 10 ** 6, 6.0, 4
+KITTI_SCANS, KITTI_RINGS, KITTI_AZIMUTHS, KITTI_MAX_RANGE = 4, 64, 1920, 80.0
+# A train step of PointASNLSemSegRes(21) at B4 x 10240 (cell 2's counts,
+# feature_channel 3 or 0 alike), and a forward's.
+GRID_STEP_LAUNCHES = {"fps": 4, "knn_resident": 11, "ball_query": 1, "knn_spatial": 0,
+                      "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0,
+                      "gather_bwd": SEG_GATHER_BWD, "gather_plan": SEG_GATHER_PLANS,
+                      "gather_bwd_bf16": 0}
+GRID_FORWARD_LAUNCHES = {**GRID_STEP_LAUNCHES, "ball_query": 0, "gather_bwd": 0,
+                         "gather_plan": 0}
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
 # on the tensor cores (dense) and HBM bandwidth, for each kernel's bound.
@@ -3389,30 +3432,46 @@ def phase_scannet_clis(dev, root):
 
 
 def check_single_pass(tape):
-    """Hold each search of test_scannet --single_pass, recorded on `tape`,
-    against its plain version on the same inputs, at the shapes the pass
-    gave it: its four FPS calls and its twelve kNN calls (each routed as
-    dispatch.knn_route routes it), indices exact and d2 within 1e-6
-    relative. Returns ([(kernel, k, support, query)] of the kNN calls, max
-    |d2 err| by kernel)."""
+    """The searches of test_scannet --single_pass (its four FPS calls and its
+    twelve kNN calls), recorded on `tape`, held to their plain versions
+    (check_tape)."""
+    return check_tape(tape, "test_scannet --single_pass")
+
+
+def check_tape(tape, what: str):
+    """Hold each search recorded on `tape` against its plain version on the
+    same inputs, at the shapes the run gave it: FPS indices exact (in the
+    design the call routes to), kNN (each routed as dispatch.knn_route
+    routes it) indices exact and d2 within 1e-6 relative, the ball query's
+    indices and counts exact. Returns ([(kernel, k, support, query)] of the
+    kNN calls, max |d2 err| by kernel)."""
     from pointasnl_tpu_torch.ops import dispatch, geometry
 
-    for (_, got), (npoint, xyz) in zip(tape.calls["farthest_point_sample"],
-                                       tape.args["farthest_point_sample"]):
-        if not torch.equal(got, geometry.farthest_point_sample(npoint, xyz)):
-            raise RuntimeError(f"fps B1 N{xyz.shape[1]} -> {npoint} (test_scannet "
-                               f"--single_pass): kernel and plain differ")
-        print(f"fps B1 N{xyz.shape[1]} -> {npoint} (test_scannet --single_pass, {fps_design(xyz)} "
-              f"design): indices exact")
     searches, errs = [], {"knn_resident": 0.0, "knn_spatial": 0.0}
-    for (_, got), (k, s, q) in zip(tape.calls["knn_point"], tape.args["knn_point"]):
-        name = "knn_" + dispatch.knn_route(s.shape[1], k)
-        self_query = " (self)" if q is s else ""
-        err = check_knn(f"{name} B1 {q.shape[1]}q/{s.shape[1]} k{k}{self_query} (test_scannet "
-                        f"--single_pass)", got, geometry.knn_point(k, s, q))
-        errs[name] = max(errs[name], err)
-        searches.append((name, k, s, q))
-        torch.cuda.empty_cache()
+    with torch.no_grad():
+        for (_, got), (npoint, xyz) in zip(tape.calls["farthest_point_sample"],
+                                           tape.args["farthest_point_sample"]):
+            B, N = xyz.shape[:2]
+            if not torch.equal(got, geometry.farthest_point_sample(npoint, xyz.detach())):
+                raise RuntimeError(f"fps B{B} N{N} -> {npoint} ({what}): kernel and plain differ")
+            print(f"fps B{B} N{N} -> {npoint} ({what}, {fps_design(xyz)} design): indices exact")
+        for (_, got), (k, s, q) in zip(tape.calls["knn_point"], tape.args["knn_point"]):
+            name = "knn_" + dispatch.knn_route(s.shape[1], k)
+            self_query = " (self)" if q is s else ""
+            err = check_knn(f"{name} B{s.shape[0]} {q.shape[1]}q/{s.shape[1]} k{k}{self_query} "
+                            f"({what})", got, geometry.knn_point(k, s.detach(), q.detach()))
+            errs[name] = max(errs[name], err)
+            searches.append((name, k, s, q))
+            torch.cuda.empty_cache()
+        for (_, got), (radius, nsample, xyz, new_xyz) in zip(tape.calls["query_ball_point"],
+                                                             tape.args["query_ball_point"]):
+            want = geometry.query_ball_point(radius, nsample, xyz.detach(), new_xyz.detach())
+            B, M = new_xyz.shape[:2]
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"ball query B{B} {M}q/{xyz.shape[1]} ({what}): kernel and "
+                                   f"plain differ")
+            print(f"ball query B{B} {M}q/{xyz.shape[1]} ns{nsample} r{radius} ({what}): indices "
+                  f"and counts exact (mean count {float(got[1].float().mean()):.3f})")
     return searches, errs
 
 
@@ -3461,6 +3520,380 @@ def time_encdec(card, enc):
                                            "gather_plan": 0}, card, "encdec serve requests",
                    "profile_encdec_serve.json")
     return out
+
+
+def scannet_grid_layout(root: Path, seed: int = SEED + 50) -> list:
+    """Write the layout ScannetGridDataset reads into root: GRID_SCENES
+    surface scenes of GRID_SCENE_N points (training_points/*.ply: xyz, rgb,
+    NYU40 labels of the recipe's 21 values, constant over 0.5 m cells, and
+    vert_ind) with their meshes (training_meshes/*_mesh.ply: every
+    GRID_MESH_EVERY-th point, its rgb and label, and faces), the last scene
+    listed in scannet_v2_val.txt. Returns the scene names."""
+    from pointasnl_tpu_torch.data import surface_scene
+    from pointasnl_tpu_torch.data.ply import write_ply
+    from pointasnl_tpu_torch.data.scannet_grid import ScannetGridDataset
+
+    rng = np.random.RandomState(seed)
+    values = np.sort(list(ScannetGridDataset.LABEL_TO_NAMES))
+    names = [f"scene{i:04d}_00" for i in range(GRID_SCENES)]
+    fields = ["x", "y", "z", "red", "green", "blue", "class"]
+    for sub in ("training_points", "training_meshes"):
+        (root / sub).mkdir(parents=True)
+    for name in names:
+        xyz = surface_scene(rng, 1, GRID_SCENE_N, extent=GRID_SCENE_EXTENT)[0]
+        rgb = (rng.rand(GRID_SCENE_N, 3) * 255).astype(np.uint8)
+        cell = np.floor(xyz / 0.5).astype(np.int64)
+        labels = values[(cell[:, 0] * 7 + cell[:, 1] * 13 + cell[:, 2] * 3) % len(values)]
+        labels = labels.astype(np.int32)
+        vert_ind = (np.arange(GRID_SCENE_N) // GRID_MESH_EVERY).astype(np.int32)
+        mesh = slice(None, None, GRID_MESH_EVERY)
+        nv = len(xyz[mesh])
+        faces = np.stack([np.arange(nv - 2), np.arange(1, nv - 1), np.arange(2, nv)], 1)
+        write_ply(str(root / "training_points" / f"{name}.ply"), [xyz, rgb, labels, vert_ind],
+                  fields + ["vert_ind"])
+        write_ply(str(root / "training_meshes" / f"{name}_mesh.ply"),
+                  [xyz[mesh], rgb[mesh], labels[mesh]], fields,
+                  triangular_faces=faces.astype(np.int32))
+    (root / "scannet_v2_val.txt").write_text(names[-1] + "\n")
+    return names
+
+
+def kitti_sequences(root: Path, seed: int = SEED + 60):
+    """Write raw SemanticKITTI sequences 00 and 08 of KITTI_SCANS scans into
+    root (velodyne/*.bin: x, y, z, remission float32; labels/*.label: raw
+    label ids, cars with instance ids): KITTI_RINGS rings from +2 to -24.8
+    degrees, KITTI_AZIMUTHS points a ring, each ray ending on the ground
+    1.73 m below the sensor (road within 4 m of the axis, sidewalk past it)
+    or on a wall of its 10-degree sector (building, vegetation or car), at
+    most KITTI_MAX_RANGE m away."""
+    rng = np.random.RandomState(seed)
+    elev0, az0 = np.meshgrid(np.deg2rad(np.linspace(2.0, -24.8, KITTI_RINGS)),
+                             np.linspace(-np.pi, np.pi, KITTI_AZIMUTHS, endpoint=False),
+                             indexing="ij")
+    for seq in ("00", "08"):
+        (root / seq / "velodyne").mkdir(parents=True)
+        (root / seq / "labels").mkdir(parents=True)
+        for i in range(KITTI_SCANS):
+            elev = elev0 + rng.randn(*elev0.shape) * 1e-3
+            az = az0 + rng.randn(*az0.shape) * 1e-3
+            sector = ((az + np.pi) / (2 * np.pi) * 36).astype(np.int64) % 36
+            wall = rng.uniform(6.0, KITTI_MAX_RANGE, 36)[sector]
+            ground = np.where(elev < 0, 1.73 / np.tan(-np.minimum(elev, -1e-4)), np.inf)
+            r = np.minimum(np.minimum(ground, wall), KITTI_MAX_RANGE)
+            r = r + rng.randn(*r.shape) * 0.02
+            x, y = r * np.cos(elev) * np.cos(az), r * np.cos(elev) * np.sin(az)
+            z = r * np.sin(elev)
+            on_ground = ground <= wall
+            kind = rng.permutation([50, 70, 10] * 12)[sector]
+            sem = np.where(on_ground, np.where(np.abs(y) < 4.0, 40, 48), kind).astype(np.uint32)
+            inst = np.where(sem == 10, sector + 1, 0).astype(np.uint32)
+            pts = np.stack([x, y, z, rng.rand(*r.shape)], -1).reshape(-1, 4).astype(np.float32)
+            pts.tofile(root / seq / "velodyne" / f"{i:06d}.bin")
+            (sem | (inst << 16)).reshape(-1).tofile(root / seq / "labels" / f"{i:06d}.label")
+
+
+@contextlib.contextmanager
+def driver_probe():
+    """Watch one driver run in this process: each train step timed by CUDA
+    events (and on the host) with the launches it made, its first step's
+    searches recorded (SearchTape), the forwards of its predict step
+    counted, each Prefetcher's wait for batches and the wall of its loop
+    (from its start to its last batch),
+    and each crop's search (the cloud's size, the crop's, host ms)."""
+    import pointasnl_tpu_torch.train as train
+    from pointasnl_tpu_torch.data import grid_pipeline, scannet_grid, semantic_kitti_grid
+
+    rec = {"steps": [], "forwards": 0, "tape": SearchTape(), "epochs": [], "crops": [],
+           "capacity": set()}
+    real_make, real_predict = train.make_train_step, train.make_predict_step
+    real_prefetcher = grid_pipeline.Prefetcher
+    searches = [(m, f) for m in (scannet_grid, semantic_kitti_grid)
+                for f in ("ball_indices", "knn_indices")]
+    saved = {(m, f): getattr(m, f) for m, f in searches}
+
+    def make_train_step(**kwargs):
+        step = real_make(**kwargs)
+
+        def probed(state, batch, rng):
+            first = not rec["steps"]
+            before = counts()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            with rec["tape"].recording() if first else contextlib.nullcontext():
+                out = step(state, batch, rng)
+            e1.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            after = counts()
+            rec["steps"].append((e0, e1, host_ms, {k: after[k] - before[k] for k in after}))
+            return out
+        return probed
+
+    def make_predict_step():
+        predict = real_predict()
+
+        def probed(state, points):
+            rec["forwards"] += 1
+            return predict(state, points)
+        return probed
+
+    class Prefetcher(real_prefetcher):
+        def __init__(self, iterator, capacity: int = 8):
+            super().__init__(iterator, capacity)
+            rec["capacity"].add(capacity)
+            self.t0 = self.end = time.perf_counter()
+            self.wait = 0.0
+
+        def __next__(self):
+            t = time.perf_counter()
+            try:
+                return super().__next__()
+            finally:
+                self.end = time.perf_counter()
+                self.wait += self.end - t
+
+        def close(self):
+            super().close()
+            rec["epochs"].append((self.wait, self.end - self.t0))
+
+    def timed(fn):
+        def probed(tree, center, arg):
+            t = time.perf_counter()
+            out = fn(tree, center, arg)
+            rec["crops"].append((tree.n, len(out), (time.perf_counter() - t) * 1e3))
+            return out
+        return probed
+
+    try:
+        train.make_train_step, train.make_predict_step = make_train_step, make_predict_step
+        grid_pipeline.Prefetcher = Prefetcher
+        for (m, f), fn in saved.items():
+            setattr(m, f, timed(fn))
+        yield rec
+    finally:
+        train.make_train_step, train.make_predict_step = real_make, real_predict
+        grid_pipeline.Prefetcher = real_prefetcher
+        for (m, f), fn in saved.items():
+            setattr(m, f, fn)
+
+
+def run_driver(label: str, main_fn, argv: list, flash: bool = False, trains: bool = True):
+    """Run one grid driver in this process under driver_probe, its launch
+    counts set to 0 just before and read just after: a trainer's
+    (`trains`) each train step must launch GRID_STEP_LAUNCHES (with the
+    flash forward and backward 4 each under `flash`), a tester takes no
+    step, and the run must launch that and GRID_FORWARD_LAUNCHES (the
+    flash forward 4 under `flash`) for each forward, no more. For a trainer
+    prints the step times (CUDA events; p50 of the steps after the first)
+    and the share of each epoch's train loop spent waiting on the
+    Prefetcher. Returns (what the CLI's main returned, the probe's record,
+    launches)."""
+    nl = 4 * flash
+    step_want = {**GRID_STEP_LAUNCHES, "flash_fwd": nl, "flash_bwd": nl}
+    fwd_want = {**GRID_FORWARD_LAUNCHES, "flash_fwd": nl}
+    reset_counts()
+    t0 = time.perf_counter()
+    with driver_probe() as rec:
+        result = main_fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    steps, forwards = rec["steps"], rec["forwards"]
+    want = {k: len(steps) * step_want[k] + forwards * fwd_want[k] for k in step_want}
+    print(f"{label}: {seconds:.1f} s; {len(steps)} train steps, {forwards} forwards; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    bad = [i for i, (_, _, _, got) in enumerate(steps) if got != step_want]
+    if bad or launches != want or bool(steps) != trains or not forwards:
+        raise RuntimeError(f"{label}: launches {launches} (steps {[s[3] for s in steps]}, "
+                           f"{forwards} forwards), expected {step_want} a train step and "
+                           f"{fwd_want} a forward")
+    if not trains:
+        return result, rec, launches
+    ms = [e0.elapsed_time(e1) for e0, e1, _, _ in steps]
+    # The first step records its searches on the tape (and is the model's
+    # first): the others make the p50.
+    p50, p90 = percentiles(ms[1:] or ms)
+    print(f"{label}: train step B{GRID_B}x{GRID_N} p50 {p50:.3f} ms, p90 {p90:.3f} ms of "
+          f"the {len(ms[1:] or ms)} after the first (CUDA events inside the trainer: "
+          f"{', '.join(f'{m:.1f}' for m in ms)}; host {', '.join(f'{s[2]:.1f}' for s in steps)} "
+          f"ms)")
+    for e, (wait, loop) in enumerate(rec["epochs"]):
+        print(f"{label}: epoch {e}'s train loop {loop * 1e3:.1f} ms, of which "
+              f"{wait * 1e3:.1f} ms ({100 * wait / loop:.1f} %) waiting on the Prefetcher "
+              f"(capacity {sorted(rec['capacity'])})")
+    return result, rec, launches
+
+
+def crop_report(label: str, clouds: dict, crops: list):
+    """Per cloud (name: subsampled points): the crops' search sizes (ball
+    or kNN) and how many were short of GRID_N points (padded with
+    duplicates), and the searches' host ms."""
+    by_n = {}
+    for n, size, ms in crops:
+        by_n.setdefault(n, []).append((size, ms))
+    for name, n in clouds.items():
+        got = by_n.get(n, [])
+        sizes = [s for s, _ in got]
+        line = f"{label} {name}: {n} subsampled points; {len(got)} crops"
+        if got:
+            line += (f", search sizes {min(sizes)}-{max(sizes)} (median "
+                     f"{statistics.median(sizes):g}), {sum(s < GRID_N for s in sizes)} padded "
+                     f"with duplicates; search host ms median "
+                     f"{statistics.median(m for _, m in got):.2f}")
+        print(line)
+
+
+def batch_ms(batches, n: int) -> list:
+    """Host ms of each of the first n batches of a fresh batch iterator."""
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        next(batches)
+        out.append((time.perf_counter() - t) * 1e3)
+    batches.close()
+    return out
+
+
+def phase_grid_scannet(root: Path) -> dict:
+    """Slice 13, ScanNet grid (the 66.6 % recipe): train_scannet_grid
+    --debug --num_point 10240 --in_radius 2 at B4, then again with
+    --nl_flash true, then test_scannet_grid --split validation --max_rounds
+    1 on the first run's latest checkpoint, which it rebuilds from
+    args.txt; each mIoU in [0, 100]. The first train step's searches are
+    held to their plain versions (check_tape). Then one pipeline's host ms
+    for a batch on its own. Returns (launches by path, max |err| by
+    kernel)."""
+    from pointasnl_tpu_torch.cli import test_scannet_grid, train_scannet_grid
+    from pointasnl_tpu_torch.data.grid_pipeline import GridConfig
+    from pointasnl_tpu_torch.data.ply import read_ply
+    from pointasnl_tpu_torch.data.scannet_grid import ScannetGridDataset
+
+    t0 = time.perf_counter()
+    names = scannet_grid_layout(root)
+    print(f"scannet grid: {GRID_SCENES} scenes of {GRID_SCENE_N} points written "
+          f"({time.perf_counter() - t0:.1f} s)")
+    recipe = ["--data", str(root), "--debug", "--num_point", str(GRID_N), "--in_radius",
+              str(GRID_RADIUS)]
+    launches, errs, crops = {}, {}, []
+    runs = {"grid_scannet_train": ["--log_dir", str(root / "logs")],
+            "grid_scannet_flash_train": ["--log_dir", str(root / "logs_flash"), "--nl_flash",
+                                         "true"]}
+    for path, extra in runs.items():
+        best, rec, launches[path] = run_driver(f"cli train_scannet_grid ({path})",
+                                               train_scannet_grid.main, recipe + extra,
+                                               flash="--nl_flash" in extra)
+        if not 0.0 <= best <= 100.0:
+            raise RuntimeError(f"train_scannet_grid ({path}): best voting mIoU {best}")
+        print(f"cli train_scannet_grid ({path}): best voting mIoU {best:.3f} %")
+        if not (Path(extra[1]) / "latest" / "state.pt").is_file():
+            raise RuntimeError(f"train_scannet_grid ({path}): no latest checkpoint")
+        _, e = check_tape(rec["tape"], f"train_scannet_grid ({path}), its first step")
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+        crops += rec["crops"]
+    miou, rec, launches["grid_scannet_test"] = run_driver(
+        "cli test_scannet_grid --split validation --max_rounds 1", test_scannet_grid.main,
+        ["--data", str(root), "--model_path", str(root / "logs"), "--ckpt", "latest",
+         "--split", "validation", "--max_rounds", "1", "--dump_dir", str(root / "dump")],
+        trains=False)
+    if not 0.0 <= miou <= 100.0:
+        raise RuntimeError(f"test_scannet_grid: voting mIoU {miou}")
+    print(f"cli test_scannet_grid: voting mIoU {miou:.3f} %")
+    crops += rec["crops"]
+    clouds = {n: len(read_ply(str(root / "input_0.040" / f"{n}.ply"))) for n in names}
+    crop_report("scannet grid", clouds, crops)
+
+    ds = ScannetGridDataset(str(root), npoint=GRID_N, debug=True,
+                            random_state=np.random.RandomState(SEED))
+    t0 = time.perf_counter()
+    ds.load_subsampled_clouds(0.04)
+    load_s = time.perf_counter() - t0
+    cfg = GridConfig(batch_size=GRID_B, epoch_steps=6, in_radius=GRID_RADIUS, input_threads=8)
+    ms = batch_ms(ds.batches("training", cfg), 6)
+    print(f"scannet grid pipeline alone: load {load_s:.2f} s (cached subsampled plys, "
+          f"{GRID_SCENES} cKDTrees); B{GRID_B}x{GRID_N} training batches (8 input threads) "
+          f"{', '.join(f'{m:.1f}' for m in ms)} ms, median of the last 5 "
+          f"{statistics.median(ms[1:]):.1f} ms")
+    return launches, errs
+
+
+def phase_grid_kitti(root: Path) -> dict:
+    """Slice 13, SemanticKITTI grid: train_semantic_kitti_grid --prepare_data
+    --debug at its defaults (B4 x 10240, kNN crops of 10240 + 1024 points),
+    then test_semantic_kitti_grid --test_id 8 --max_rounds 1 on its latest
+    checkpoint (rebuilt from args.txt): the trainer's mIoU in [0, 100], a
+    .label file of every raw point of each scan of sequence 08. The first
+    train step's searches are held to their plain versions. Then the
+    pipeline's host ms for a batch on its own. Returns (launches by path,
+    max |err| by kernel)."""
+    from pointasnl_tpu_torch.cli import test_semantic_kitti_grid, train_semantic_kitti_grid
+    from pointasnl_tpu_torch.data.grid_pipeline import GridConfig
+    from pointasnl_tpu_torch.data.semantic_kitti_config import LEARNING_MAP_INV
+    from pointasnl_tpu_torch.data.semantic_kitti_grid import SemanticKittiGridDataset
+
+    seqs = root / "sequences"
+    t0 = time.perf_counter()
+    kitti_sequences(seqs)
+    print(f"kitti grid: sequences 00 and 08 of {KITTI_SCANS} scans of "
+          f"{KITTI_RINGS * KITTI_AZIMUTHS} points written ({time.perf_counter() - t0:.1f} s)")
+    launches = {}
+    best, rec, launches["grid_kitti_train"] = run_driver(
+        "cli train_semantic_kitti_grid --prepare_data --debug", train_semantic_kitti_grid.main,
+        ["--data", str(seqs), "--log_dir", str(root / "logs"), "--prepare_data", "--debug",
+         "--num_point", str(GRID_N)])
+    if not 0.0 <= best <= 100.0 or not (root / "logs" / "latest" / "state.pt").is_file():
+        raise RuntimeError(f"train_semantic_kitti_grid: best mIoU {best}, or no checkpoint")
+    print(f"cli train_semantic_kitti_grid: best mIoU {best:.3f} %")
+    _, errs = check_tape(rec["tape"], "train_semantic_kitti_grid, its first step")
+    crops = rec["crops"]
+    pred = root / "pred"
+    _, rec, launches["grid_kitti_test"] = run_driver(
+        "cli test_semantic_kitti_grid --test_id 8 --max_rounds 1", test_semantic_kitti_grid.main,
+        ["--data", str(seqs), "--model_path", str(root / "logs"), "--ckpt", "latest",
+         "--test_id", "8", "--max_rounds", "1", "--save_dir", str(pred)], trains=False)
+    crops += rec["crops"]
+    files = sorted((pred / "sequences" / "08" / "predictions").glob("*.label"))
+    raw = set(LEARNING_MAP_INV.values())
+    for f in files:
+        out = np.fromfile(f, dtype=np.uint32)
+        if out.shape != (KITTI_RINGS * KITTI_AZIMUTHS,) or not set(np.unique(out)) <= raw:
+            raise RuntimeError(f"test_semantic_kitti_grid: {f.name} holds {out.shape} labels")
+    if len(files) != KITTI_SCANS:
+        raise RuntimeError(f"test_semantic_kitti_grid wrote {len(files)} label files")
+    print(f"cli test_semantic_kitti_grid: {len(files)} .label files of "
+          f"{KITTI_RINGS * KITTI_AZIMUTHS} raw label ids each")
+    prepared = Path(str(seqs) + "_0.06")
+    clouds = {f"{seq}/{f.stem}": len(np.load(f)) for seq in ("00", "08")
+              for f in sorted((prepared / seq / "velodyne").glob("*.npy"))}
+    crop_report("kitti grid", clouds, crops)
+
+    ds = SemanticKittiGridDataset(str(seqs), num_point=GRID_N, test_id=8,
+                                  random_state=np.random.RandomState(SEED))
+    cfg = GridConfig(batch_size=GRID_B, input_threads=8)
+    train_ms = batch_ms(ds.batches("training", cfg), 1)
+    test_ms = batch_ms(ds.batches("test", cfg, augment=False), 4)
+    print(f"kitti grid pipeline alone: B{GRID_B}x{GRID_N} training batch {train_ms[0]:.1f} ms, "
+          f"test batches {', '.join(f'{m:.1f}' for m in test_ms)} ms (8 input threads; a scan's "
+          f"cKDTree built from its .npy at each read)")
+    return launches, errs
+
+
+def slice13(dev, mark):
+    """Slice 13's drivers on synthetic data in a temporary directory.
+    Returns what the kernels line needs."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="grid_")
+    root = Path(tmp.name)
+    launches, errs = phase_grid_scannet(root / "scannet")
+    mark("slice 13 ScanNet grid drivers")
+    kitti_launches, kitti_errs = phase_grid_kitti(root / "kitti")
+    launches.update(kitti_launches)
+    for name, e in kitti_errs.items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    mark("slice 13 SemanticKITTI grid drivers")
+    tmp.cleanup()
+    return {"launches": launches, "errs": errs}
 
 
 def slice5(dev, card, mark):
@@ -3516,6 +3949,9 @@ def main() -> int:
     enc = slice12(dev, mark)
     for name, e in enc["errs"].items():
         errs[name] = max(errs[name], e)
+    grid = slice13(dev, mark)
+    for name, e in grid["errs"].items():
+        errs[name] = max(errs[name], e)
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     print(f"card before timing: {clocks} = {smi(clocks)}")
     rows = time_kernels(dev, card, gathers, gathers_bf16, enc)
@@ -3562,7 +3998,8 @@ def main() -> int:
                    "seg_encdec_serve": enc["serve_launches"][name],
                    "seg_encdec_flash_train": enc["flash_launches"][name],
                    "seg_encdec_sliding_windows": enc["cli_launches"]["sliding windows"][name],
-                   "seg_encdec_single_pass": enc["cli_launches"]["single pass"][name]}
+                   "seg_encdec_single_pass": enc["cli_launches"]["single pass"][name],
+                   **{path: got[name] for path, got in grid["launches"].items()}}
         lib = [r["library_ms"] for r in shapes]
         records.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],

@@ -65,6 +65,48 @@ def add_vote(vote_label_pool, point_idx, pred_label, weight):
     return vote_label_pool
 
 
+def label_confusion(truth, preds, label_values) -> np.ndarray:
+    """(L, L) int64 confusion matrix over the sorted label values
+    `label_values`, rows the truth and columns the prediction: numpy's
+    counterpart of ``sklearn.metrics.confusion_matrix(truth, preds,
+    labels=label_values)``, which the JAX package's grid drivers call (a
+    pair holding a value outside `label_values` is not counted)."""
+    label_values = np.asarray(label_values)
+    n = len(label_values)
+    t = np.searchsorted(label_values, truth)
+    p = np.searchsorted(label_values, preds)
+    t_ok = label_values[np.minimum(t, n - 1)] == truth
+    p_ok = label_values[np.minimum(p, n - 1)] == preds
+    keep = t_ok & p_ok
+    return np.bincount(t[keep] * n + p[keep], minlength=n * n).reshape(n, n)
+
+
+def with_ignored_columns(probs, label_values, ignored):
+    """Insert a zero column at each ignored label's index into class
+    probabilities that cover the other labels, so that an argmax indexes
+    `label_values` (the grid drivers' convention)."""
+    for l_ind, label_value in enumerate(label_values):
+        if label_value in ignored:
+            probs = np.insert(probs, l_ind, 0, axis=1)
+    return probs
+
+
+def drop_ignored(confusion, label_values, ignored):
+    """A confusion matrix over `label_values` without the ignored labels'
+    rows and columns."""
+    for l_ind, label_value in reversed(list(enumerate(label_values))):
+        if label_value in ignored:
+            confusion = np.delete(confusion, l_ind, axis=0)
+            confusion = np.delete(confusion, l_ind, axis=1)
+    return confusion
+
+
+def class_probs(logits: torch.Tensor) -> np.ndarray:
+    """Softmax over classes 1.. (class 0 is never predicted), on the host:
+    the grid drivers' per-point probabilities."""
+    return torch.softmax(logits[:, :, 1:], dim=-1).cpu().numpy()
+
+
 def pad_seg_batch(batch_data, batch_label, batch_smpw, batch_size):
     """Pad a short block batch to the batch size (repeat row 0)."""
     bsize = batch_data.shape[0]

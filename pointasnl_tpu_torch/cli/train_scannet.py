@@ -7,7 +7,8 @@ loss, per-batch z-rotation + unit-sphere normalisation, chopped-scene eval
 each epoch and whole-scene tiled eval every `whole_eval_gap` epochs after
 `whole_eval_start` (reference: every 10 after 500, train_scannet.py:201-203),
 an epoch-numbered checkpoint each epoch with ``latest`` on it, and ``best``
-on the whole-scene mIoU. It runs on the card unless ``--device cpu``; the
+on the whole-scene mIoU. The train crops are drawn on a Prefetcher's thread
+(capacity 4), as the JAX trainer draws them. It runs on the card unless ``--device cpu``; the
 dropout masks come from a generator seeded with ``--seed`` + 1.
 
     python -m pointasnl_tpu_torch.cli.train_scannet --data <dir> --log_dir <dir>
@@ -96,6 +97,7 @@ def main(argv=None):
     dev = device(flags)
 
     from pointasnl_tpu_torch.data import provider
+    from pointasnl_tpu_torch.data.grid_pipeline import Prefetcher
     from pointasnl_tpu_torch.data.scannet import ScannetDataset, ScannetDatasetWholeScene
     from pointasnl_tpu_torch.models import get_model_class
     from pointasnl_tpu_torch.train import (
@@ -187,7 +189,8 @@ def main(argv=None):
                 os.path.join(flags.log_dir, "profile"),
                 enabled=flags.profile and epoch == 0, log=log,
             )
-            try:
+
+            def train_batches():
                 for b in range(num_batches):
                     batch_data, batch_label, batch_smpw = get_batch(
                         train_ds, train_idxs, b * flags.batch_size, (b + 1) * flags.batch_size,
@@ -197,10 +200,19 @@ def main(argv=None):
                         batch_data[:, :, :3], random_state=rs
                     )
                     batch_data[:, :, :3] = provider.normalize_data(batch_data[:, :, :3])
-                    batch = {"points": on_device(batch_data), "labels": on_device(batch_label),
-                             "smpw": on_device(batch_smpw)}
-                    metrics = tracer.traced(lambda: train_step(state, batch, dropout_rng))
-                    loss_sum = loss_sum + metrics["loss"]  # on the device: no sync a step
+                    yield batch_data, batch_label, batch_smpw
+
+            try:
+                # The crops are drawn on a thread while the steps run (the
+                # JAX trainer's Prefetcher of 4); nothing else draws from rs
+                # meanwhile, so the batches and their order are unchanged.
+                with Prefetcher(train_batches(), capacity=4) as batches:
+                    for batch_data, batch_label, batch_smpw in batches:
+                        batch = {"points": on_device(batch_data),
+                                 "labels": on_device(batch_label),
+                                 "smpw": on_device(batch_smpw)}
+                        metrics = tracer.traced(lambda: train_step(state, batch, dropout_rng))
+                        loss_sum = loss_sum + metrics["loss"]  # on the device: no sync a step
             finally:
                 tracer.close()
             train_loss = float(loss_sum) / max(num_batches, 1)

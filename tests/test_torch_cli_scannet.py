@@ -188,3 +188,54 @@ def test_the_default_device_is_the_card(tmp_path, monkeypatch, cli):
     assert cli.parse_args(argv).device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA card"):
         cli.main(argv)
+
+
+def test_train_scannet_feeds_the_inline_batches_through_a_prefetcher(
+        synthetic_scannet, tmp_path, monkeypatch):  # noqa: F811
+    """The trainer draws its crops on a Prefetcher's thread (capacity 4, as
+    the JAX trainer does); the batches, and their order, are those the
+    trainer drew inline before, step by step."""
+    import pointasnl_tpu_torch.train as ttrain
+    from pointasnl_tpu_torch.data import grid_pipeline
+
+    real_make, real_prefetcher = ttrain.make_train_step, grid_pipeline.Prefetcher
+    fed, capacities = [], []
+
+    def recording_make(**kwargs):
+        step = real_make(**kwargs)
+
+        def recorded(state, batch, rng):
+            fed[-1].append({k: v.clone() for k, v in batch.items()})
+            return step(state, batch, rng)
+        return recorded
+
+    class Inline:
+        """The loop as it ran before: each batch drawn when the step asks."""
+
+        def __init__(self, iterator, capacity):
+            self.iterator = iterator
+
+        def __enter__(self):
+            return self.iterator
+
+        def __exit__(self, *exc):
+            return False
+
+    def prefetcher(iterator, capacity):
+        capacities.append(capacity)
+        return real_prefetcher(iterator, capacity)
+
+    monkeypatch.setattr(ttrain, "make_train_step", recording_make)
+    for run, feeder in enumerate((Inline, prefetcher)):
+        fed.append([])
+        monkeypatch.setattr(grid_pipeline, "Prefetcher", feeder)
+        train_scannet.main(["--data", synthetic_scannet, "--log_dir", str(tmp_path / str(run)),
+                            "--batch_size", "2", "--num_point", "512", "--whole_eval_gap",
+                            "1000", "--debug", "--device", "cpu"])
+    assert capacities == [4, 4]  # a Prefetcher an epoch
+    inline, prefetched = fed
+    assert len(inline) == len(prefetched) == 2
+    for a, b in zip(inline, prefetched):
+        for k in ("points", "labels", "smpw"):
+            assert torch.equal(a[k], b[k])
+    assert not torch.equal(inline[0]["points"], inline[1]["points"])

@@ -12,7 +12,13 @@ import pointasnl_tpu_torch
 from pointasnl_tpu_torch.nn import PointConv
 from pointasnl_tpu_torch.utils import flax_to_state_dict
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pointasnl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pointasnl_tpu", "sklearn")
+# The grid pipelines' modules: the card's machine has no scikit-learn and no
+# PyYAML, so none of them may import either when it is imported.
+GRID_MODULES = ("data.ply", "data.mesh", "data.grid_subsampling", "data.grid_pipeline",
+                "data.scannet_grid", "data.semantic_kitti_config", "data.semantic_kitti_grid",
+                "cli.train_scannet_grid", "cli.test_scannet_grid",
+                "cli.train_semantic_kitti_grid", "cli.test_semantic_kitti_grid")
 PKG = Path(pointasnl_tpu_torch.__file__).parent
 
 
@@ -42,7 +48,8 @@ def test_port_sources_found():
             "pointasnl_tpu_torch/models/sem_seg.py", "pointasnl_tpu_torch/cli/train_scannet.py",
             "pointasnl_tpu_torch/cli/test_scannet.py", "pointasnl_tpu_torch/cli/seg_common.py",
             "pointasnl_tpu_torch/data/scannet.py", "pointasnl_tpu_torch/data/provider.py",
-            "pointasnl_tpu_torch/utils/config.py", "pointasnl_tpu_torch/utils/logging.py"} <= names
+            "pointasnl_tpu_torch/utils/config.py", "pointasnl_tpu_torch/utils/logging.py",
+            *(f"pointasnl_tpu_torch/{m.replace('.', '/')}.py" for m in GRID_MODULES)} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.relative_to(PKG.parent).as_posix())
@@ -51,6 +58,28 @@ def test_port_module_imports_no_jax(path):
     sys.modules cannot tell what the port imports."""
     roots = set(_imported_roots(ast.parse(path.read_text(), filename=str(path))))
     assert not roots & set(FORBIDDEN), f"{path} imports {sorted(roots & set(FORBIDDEN))}"
+
+
+def test_grid_modules_import_without_sklearn_yaml_or_jax():
+    """Each grid module imports in a process where ``sklearn``, ``yaml``,
+    ``jax`` and ``pointasnl_tpu`` cannot be imported (their ``sys.modules``
+    entries set to None)."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "for name in ('sklearn', 'yaml', 'jax', 'pointasnl_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for m in {GRID_MODULES!r}:\n"
+            "    importlib.import_module('pointasnl_tpu_torch.' + m)\n"
+            "from pointasnl_tpu_torch.data.semantic_kitti_config import load_config\n"
+            "assert load_config()['learning_map'][252] == 1\n"
+            "print('imported', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("imported")
 
 
 def test_import_scan_catches_forbidden_imports():
