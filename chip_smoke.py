@@ -203,6 +203,31 @@ Phases (any failure raises, and the script exits non-zero with no result):
      spent waiting on the Prefetcher; each pipeline's host ms for a batch
      on its own.
 
+ 17. Slice 14, run after phase 16 and before the timing: the last dataset
+     drivers in this process, on synthetic data written to a temporary
+     directory. SemanticKITTI blocks (sequences 00 and 08 of 6 scans of
+     122880 points): ``cli.train_semantic_kitti --debug --with_remission``
+     (``PointASNLSemSeg(20, feature_channel=1)``, B6 x 8192; a step launches
+     FPS 4, the resident kNN 12, the ball query 1 and the gather backward 18
+     on 12 plans, a forward FPS 4 and kNN 12), its first step's searches
+     held to their plain versions; ``cli.test_semantic_kitti --max_scans 1
+     --num_votes 1`` by sliding windows (a .label file of every raw point;
+     the last batch's rows of zeros, clouds of one repeated point, through
+     FPS and every kNN held to their plain versions, and the ball query on
+     that batch), then ``--single_pass`` on the whole scan (B1 x 122880,
+     dense attention; FPS 4, the spatial kNN 5, the resident kNN 7; its 16
+     searches held to their plain versions; peak memory). ModelNet40 (40
+     classes of 2 + 1 shapes of 10000 points with normals):
+     ``cli.train_modelnet --AS --normal --debug`` (B16 x 1024) in float32
+     and with ``--precision bfloat16`` (a step: FPS 2, kNN 2, the gather
+     backward 2 on 1 plan, in bfloat16 one of them the bfloat16 sum), each
+     first step's searches held to their plain versions, then
+     ``cli.test_modelnet --num_votes 2 --noise``: the sweep's keys {0, 1,
+     10, 50, 100}. Printed: the step times inside each trainer, the
+     forwards' ms, the sliding windows' host seconds, a training batch's
+     host ms alone. Timing adds the single pass's and the ModelNet step's
+     searches at their shapes (paths seg_kitti_single_pass, cls_modelnet).
+
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
 """
@@ -487,6 +512,36 @@ GRID_STEP_LAUNCHES = {"fps": 4, "knn_resident": 11, "ball_query": 1, "knn_spatia
                       "gather_bwd_bf16": 0}
 GRID_FORWARD_LAUNCHES = {**GRID_STEP_LAUNCHES, "ball_query": 0, "gather_bwd": 0,
                          "gather_plan": 0}
+
+# Slice 14: the last dataset drivers, in this process, on synthetic data
+# written to a temporary directory. SemanticKITTI blocks (README:
+# --with_remission, PointASNLSemSeg(20, feature_channel=1), B6 x 8192):
+# sequences 00 and 08 as kitti_sequences writes them, KITTI_BLOCK_SCANS
+# scans each (a B6 batch of crops draws six scans of a split), and the
+# split's other sequences empty; the single pass takes one whole scan,
+# B1 x KITTI_RINGS * KITTI_AZIMUTHS (a multiple of the 8192-point pad
+# quantum: no padding). ModelNet40 (README: --AS --normal,
+# PointASNLCls(40, use_normal=True, adaptive_sample=True), B16 x 1024): a
+# modelnet40_normal_resampled tree of MODELNET_CLASSES classes,
+# MODELNET_TRAIN training and MODELNET_TEST test shapes a class, each
+# MODELNET_POINTS x 6 (xyz, normal) in CSV.
+KITTI_BLOCK_B, KITTI_BLOCK_N, KITTI_BLOCK_SCANS, KITTI_CLASSES = 6, 8192, 6, 20
+MODELNET_CLASSES, MODELNET_TRAIN, MODELNET_TEST, MODELNET_POINTS = 40, 2, 1, 10000
+MODELNET_B, MODELNET_N = 16, 1024
+# A KITTI train step launches the encoder-decoder step's kernels (counted
+# on the CPU with the kernels' wrappers stubbed, as for feature_channel 3:
+# the gather backward ENC_GATHER_BWD times on ENC_GATHER_PLANS plans), a
+# forward ENC_LAUNCHES.
+KITTI_STEP_LAUNCHES = {**ENC_LAUNCHES, "ball_query": 1, "gather_bwd": ENC_GATHER_BWD,
+                       "gather_plan": ENC_GATHER_PLANS}
+# A cls forward launches FPS 2 and the resident kNN 2 (normals or not); a
+# float32 train step adds the gather backward 2 times on 1 plan, a bfloat16
+# step 1 float32 and 1 bfloat16 sum on that plan (counted on the CPU as
+# above).
+CLS_FORWARD_LAUNCHES = {**ENC_LAUNCHES, "fps": 2, "knn_resident": 2}
+CLS_STEP_LAUNCHES = {"float32": {**CLS_FORWARD_LAUNCHES, "gather_bwd": 2, "gather_plan": 1},
+                     "bfloat16": {**CLS_FORWARD_LAUNCHES, "gather_bwd": 1, "gather_plan": 1,
+                                  "gather_bwd_bf16": 1}}
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
 # on the tensor cores (dense) and HBM bandwidth, for each kernel's bound.
@@ -1796,10 +1851,11 @@ def plan_bound(B, n, R):
     return bound(B * R * 4 + B * R * 4 + (B * n + 1) * 4, 2 * B * R)
 
 
-def time_kernels(dev, card, gathers, gathers_bf16, enc):
+def time_kernels(dev, card, gathers, gathers_bf16, enc, drivers):
     """Kernel vs plain times, and bounds, at every slice's shapes; `gathers`
     are the (dout, idx, n) of a seg step's gather backwards, `gathers_bf16`
-    those of a bfloat16 seg step, `enc` slice 12's (slice12)."""
+    those of a bfloat16 seg step, `enc` slice 12's (slice12), `drivers`
+    slice 14's (slice14)."""
     from pointasnl_tpu_torch.ops import geometry
     from pointasnl_tpu_torch.ops.cuda import ball_query, fps, knn, knn_spatial, knn_streaming
 
@@ -2033,20 +2089,43 @@ def time_kernels(dev, card, gathers, gathers_bf16, enc):
     # ENC_SCENE_N points, on the inputs the pass gave them (path
     # seg_encdec_single_pass); its four FPS calls have the whole-scene
     # request's shapes (path scene).
-    for name, k, s_, q in enc["single_pass"]:
-        N, M = s_.shape[1], q.shape[1]
-        shape = f"B1 {M}q/{N} k{k}{' (self)' if q is s_ else ''}"
-        plain = lambda s_=s_, q=q, k=k: geometry.knn_point(k, s_, q)  # noqa: E731
-        if name == "knn_spatial":
-            tested = knn_spatial.pairs_tested(k, s_, q)
-            add(name, "seg_encdec_single_pass", shape, plain,
-                lambda s_=s_, q=q, k=k: knn_spatial.knn_point(k, s_, q), spatial_bound(1, N, M, k),
-                (10, 2), SLOW if N * M >= 10**9 else HEAVY, pairs_tested=tested,
-                pairs_tested_share=tested / (N * M))
-        else:
-            add(name, "seg_encdec_single_pass", shape, plain,
-                lambda s_=s_, q=q, k=k: knn.knn_point(k, s_, q), knn_bound(1, N, M, k),
-                timing=HEAVY if N * M >= 10**7 else LIGHT)
+    def recorded_searches(path, fps_calls, searches):
+        """Rows of the FPS calls [(npoint, xyz)] and kNN searches [(kernel,
+        k, support, query)] a run recorded, on the inputs it gave them."""
+        for npoint, a in fps_calls:
+            a = a.detach().float()
+            B, N = a.shape[:2]
+            # The plain version takes ~0.15 ms a pick on the card.
+            add("fps", path, f"B{B} N{N}->{npoint}",
+                lambda a=a, n=npoint: geometry.farthest_point_sample(n, a),
+                lambda a=a, n=npoint: fps.farthest_point_sample(n, a), fps_bound(B, N, npoint),
+                timing=(10, 2) if npoint >= 8192 else HEAVY if npoint >= 320 else LIGHT,
+                plain_timing=SLOW if npoint >= 2048 else HEAVY if npoint >= 128 else LIGHT,
+                symbol=fps_symbol(a), fps_n=N, fps_npoint=npoint)
+        for name, k, s_, q in searches:
+            self_query = q is s_
+            s_ = s_.detach().float()
+            q = s_ if self_query else q.detach().float()
+            B, N, M = s_.shape[0], s_.shape[1], q.shape[1]
+            shape = f"B{B} {M}q/{N} k{k}{' (self)' if q is s_ else ''}"
+            plain = lambda s_=s_, q=q, k=k: geometry.knn_point(k, s_, q)  # noqa: E731
+            if name == "knn_spatial":
+                tested = knn_spatial.pairs_tested(k, s_, q)
+                add(name, path, shape, plain,
+                    lambda s_=s_, q=q, k=k: knn_spatial.knn_point(k, s_, q),
+                    spatial_bound(B, N, M, k), (10, 2),
+                    SLOW if B * N * M >= 10**9 else HEAVY, pairs_tested=tested,
+                    pairs_tested_share=tested / (B * N * M))
+            else:
+                add(name, path, shape, plain, lambda s_=s_, q=q, k=k: knn.knn_point(k, s_, q),
+                    knn_bound(B, N, M, k), timing=HEAVY if B * N * M >= 10**7 else LIGHT)
+
+    recorded_searches("seg_encdec_single_pass", [], enc["single_pass"])
+    # Slice 14: the SemanticKITTI single pass's FPS calls and searches
+    # (B1 x KITTI_RINGS * KITTI_AZIMUTHS) and those of the ModelNet40 cls
+    # step with normals (B16 x 1024), on the inputs the runs gave them.
+    recorded_searches("seg_kitti_single_pass", *drivers["single_pass"])
+    recorded_searches("cls_modelnet", *drivers["cls"])
     # The step's gathers and plans in all, as the step runs them (one row
     # each: device ms of all their launches), and its largest gather, the
     # last decoding layer's grouping, and its plan at their own shape.
@@ -3440,7 +3519,8 @@ def check_single_pass(tape):
 
 def check_tape(tape, what: str):
     """Hold each search recorded on `tape` against its plain version on the
-    same inputs, at the shapes the run gave it: FPS indices exact (in the
+    same inputs (in float32, as ops.dispatch gives them to the kernels), at
+    the shapes the run gave it: FPS indices exact (in the
     design the call routes to), kNN (each routed as dispatch.knn_route
     routes it) indices exact and d2 within 1e-6 relative, the ball query's
     indices and counts exact. Returns ([(kernel, k, support, query)] of the
@@ -3452,20 +3532,22 @@ def check_tape(tape, what: str):
         for (_, got), (npoint, xyz) in zip(tape.calls["farthest_point_sample"],
                                            tape.args["farthest_point_sample"]):
             B, N = xyz.shape[:2]
-            if not torch.equal(got, geometry.farthest_point_sample(npoint, xyz.detach())):
+            if not torch.equal(got, geometry.farthest_point_sample(npoint, xyz.detach().float())):
                 raise RuntimeError(f"fps B{B} N{N} -> {npoint} ({what}): kernel and plain differ")
             print(f"fps B{B} N{N} -> {npoint} ({what}, {fps_design(xyz)} design): indices exact")
         for (_, got), (k, s, q) in zip(tape.calls["knn_point"], tape.args["knn_point"]):
             name = "knn_" + dispatch.knn_route(s.shape[1], k)
             self_query = " (self)" if q is s else ""
             err = check_knn(f"{name} B{s.shape[0]} {q.shape[1]}q/{s.shape[1]} k{k}{self_query} "
-                            f"({what})", got, geometry.knn_point(k, s.detach(), q.detach()))
+                            f"({what})", got, geometry.knn_point(k, s.detach().float(),
+                                                                 q.detach().float()))
             errs[name] = max(errs[name], err)
             searches.append((name, k, s, q))
             torch.cuda.empty_cache()
         for (_, got), (radius, nsample, xyz, new_xyz) in zip(tape.calls["query_ball_point"],
                                                              tape.args["query_ball_point"]):
-            want = geometry.query_ball_point(radius, nsample, xyz.detach(), new_xyz.detach())
+            want = geometry.query_ball_point(radius, nsample, xyz.detach().float(),
+                                             new_xyz.detach().float())
             B, M = new_xyz.shape[:2]
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 raise RuntimeError(f"ball query B{B} {M}q/{xyz.shape[1]} ({what}): kernel and "
@@ -3558,8 +3640,8 @@ def scannet_grid_layout(root: Path, seed: int = SEED + 50) -> list:
     return names
 
 
-def kitti_sequences(root: Path, seed: int = SEED + 60):
-    """Write raw SemanticKITTI sequences 00 and 08 of KITTI_SCANS scans into
+def kitti_sequences(root: Path, seed: int = SEED + 60, scans: int = KITTI_SCANS):
+    """Write raw SemanticKITTI sequences 00 and 08 of `scans` scans into
     root (velodyne/*.bin: x, y, z, remission float32; labels/*.label: raw
     label ids, cars with instance ids): KITTI_RINGS rings from +2 to -24.8
     degrees, KITTI_AZIMUTHS points a ring, each ray ending on the ground
@@ -3573,7 +3655,7 @@ def kitti_sequences(root: Path, seed: int = SEED + 60):
     for seq in ("00", "08"):
         (root / seq / "velodyne").mkdir(parents=True)
         (root / seq / "labels").mkdir(parents=True)
-        for i in range(KITTI_SCANS):
+        for i in range(scans):
             elev = elev0 + rng.randn(*elev0.shape) * 1e-3
             az = az0 + rng.randn(*az0.shape) * 1e-3
             sector = ((az + np.pi) / (2 * np.pi) * 36).astype(np.int64) % 36
@@ -3596,16 +3678,17 @@ def kitti_sequences(root: Path, seed: int = SEED + 60):
 def driver_probe():
     """Watch one driver run in this process: each train step timed by CUDA
     events (and on the host) with the launches it made, its first step's
-    searches recorded (SearchTape), the forwards of its predict step
-    counted, each Prefetcher's wait for batches and the wall of its loop
+    searches recorded (SearchTape), the forwards of its predict and eval
+    steps counted and timed by CUDA events, each Prefetcher's wait for batches and the wall of its loop
     (from its start to its last batch),
     and each crop's search (the cloud's size, the crop's, host ms)."""
     import pointasnl_tpu_torch.train as train
     from pointasnl_tpu_torch.data import grid_pipeline, scannet_grid, semantic_kitti_grid
 
-    rec = {"steps": [], "forwards": 0, "tape": SearchTape(), "epochs": [], "crops": [],
-           "capacity": set()}
+    rec = {"steps": [], "forwards": 0, "forward_events": [], "tape": SearchTape(), "epochs": [],
+           "crops": [], "capacity": set()}
     real_make, real_predict = train.make_train_step, train.make_predict_step
+    real_eval = train.make_eval_step
     real_prefetcher = grid_pipeline.Prefetcher
     searches = [(m, f) for m in (scannet_grid, semantic_kitti_grid)
                 for f in ("ball_indices", "knn_indices")]
@@ -3629,13 +3712,22 @@ def driver_probe():
             return out
         return probed
 
+    def forward(fn, *args):
+        rec["forwards"] += 1
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*args)
+        e1.record()
+        rec["forward_events"].append((e0, e1))
+        return out
+
     def make_predict_step():
         predict = real_predict()
+        return lambda state, points: forward(predict, state, points)
 
-        def probed(state, points):
-            rec["forwards"] += 1
-            return predict(state, points)
-        return probed
+    def make_eval_step(**kwargs):
+        evaluate = real_eval(**kwargs)
+        return lambda state, batch: forward(evaluate, state, batch)
 
     class Prefetcher(real_prefetcher):
         def __init__(self, iterator, capacity: int = 8):
@@ -3666,31 +3758,36 @@ def driver_probe():
 
     try:
         train.make_train_step, train.make_predict_step = make_train_step, make_predict_step
+        train.make_eval_step = make_eval_step
         grid_pipeline.Prefetcher = Prefetcher
         for (m, f), fn in saved.items():
             setattr(m, f, timed(fn))
         yield rec
     finally:
         train.make_train_step, train.make_predict_step = real_make, real_predict
+        train.make_eval_step = real_eval
         grid_pipeline.Prefetcher = real_prefetcher
         for (m, f), fn in saved.items():
             setattr(m, f, fn)
 
 
-def run_driver(label: str, main_fn, argv: list, flash: bool = False, trains: bool = True):
-    """Run one grid driver in this process under driver_probe, its launch
+def run_driver(label: str, main_fn, argv: list, flash: bool = False, trains: bool = True,
+               step_want: dict = GRID_STEP_LAUNCHES, fwd_want: dict = GRID_FORWARD_LAUNCHES,
+               shape: str = f"B{GRID_B}x{GRID_N}"):
+    """Run one driver in this process under driver_probe, its launch
     counts set to 0 just before and read just after: a trainer's
-    (`trains`) each train step must launch GRID_STEP_LAUNCHES (with the
-    flash forward and backward 4 each under `flash`), a tester takes no
-    step, and the run must launch that and GRID_FORWARD_LAUNCHES (the
-    flash forward 4 under `flash`) for each forward, no more. For a trainer
+    (`trains`) each train step must launch `step_want` (a grid driver's
+    by default; with the flash forward and backward 4 each under `flash`), a
+    tester takes no step, and the run must launch that and `fwd_want` (the
+    flash forward 4 under `flash`) for each forward (predict or eval step),
+    no more. For a trainer
     prints the step times (CUDA events; p50 of the steps after the first)
     and the share of each epoch's train loop spent waiting on the
     Prefetcher. Returns (what the CLI's main returned, the probe's record,
     launches)."""
     nl = 4 * flash
-    step_want = {**GRID_STEP_LAUNCHES, "flash_fwd": nl, "flash_bwd": nl}
-    fwd_want = {**GRID_FORWARD_LAUNCHES, "flash_fwd": nl}
+    step_want = {**step_want, "flash_fwd": nl, "flash_bwd": nl}
+    fwd_want = {**fwd_want, "flash_fwd": nl}
     reset_counts()
     t0 = time.perf_counter()
     with driver_probe() as rec:
@@ -3713,7 +3810,7 @@ def run_driver(label: str, main_fn, argv: list, flash: bool = False, trains: boo
     # The first step records its searches on the tape (and is the model's
     # first): the others make the p50.
     p50, p90 = percentiles(ms[1:] or ms)
-    print(f"{label}: train step B{GRID_B}x{GRID_N} p50 {p50:.3f} ms, p90 {p90:.3f} ms of "
+    print(f"{label}: train step {shape} p50 {p50:.3f} ms, p90 {p90:.3f} ms of "
           f"the {len(ms[1:] or ms)} after the first (CUDA events inside the trainer: "
           f"{', '.join(f'{m:.1f}' for m in ms)}; host {', '.join(f'{s[2]:.1f}' for s in steps)} "
           f"ms)")
@@ -3896,6 +3993,311 @@ def slice13(dev, mark):
     return {"launches": launches, "errs": errs}
 
 
+def kitti_block_dataset(root: Path) -> Path:
+    """Sequences 00 and 08 of KITTI_BLOCK_SCANS scans (kitti_sequences)
+    under root/sequences, and the train and valid splits' other sequences
+    empty (the datasets list each). Returns root."""
+    from pointasnl_tpu_torch.data.semantic_kitti_config import SPLIT
+
+    kitti_sequences(root / "sequences", scans=KITTI_BLOCK_SCANS)
+    for seq in SPLIT["train"] + SPLIT["valid"]:
+        for sub in ("velodyne", "labels"):
+            (root / "sequences" / f"{seq:02d}" / sub).mkdir(parents=True, exist_ok=True)
+    return root
+
+
+@contextlib.contextmanager
+def sliding_window_builds():
+    """Each scan's sliding-window blocks built in this block, as (host
+    seconds, blocks)."""
+    from pointasnl_tpu_torch.data.semantic_kitti import SemanticKittiDatasetSlidingWindow as ds
+
+    builds, real = [], ds.__getitem__
+
+    def getitem(self, index):
+        t = time.perf_counter()
+        item = real(self, index)
+        builds.append((time.perf_counter() - t, item[0].shape[0]))
+        return item
+
+    ds.__getitem__ = getitem
+    try:
+        yield builds
+    finally:
+        ds.__getitem__ = real
+
+
+def forward_ms(rec) -> list:
+    """The CUDA-event ms of each forward a driver_probe record timed."""
+    return [e0.elapsed_time(e1) for e0, e1 in rec["forward_events"]]
+
+
+def last_forward(tape, fps: int = 4, knn: int = 12):
+    """A SearchTape of the last forward's searches on `tape`: its last
+    `fps` FPS and `knn` kNN calls."""
+    out = SearchTape()
+    for op, n in (("farthest_point_sample", fps), ("knn_point", knn)):
+        out.calls[op], out.args[op] = tape.calls[op][-n:], tape.args[op][-n:]
+    return out
+
+
+def repeated_point_clouds(x: torch.Tensor) -> int:
+    """How many clouds of x (B, N, 3) are one point repeated."""
+    return int((x == x[:, :1]).all(-1).all(-1).sum())
+
+
+def routed(tape) -> dict:
+    """The launches a run of the searches on `tape` makes, routed as
+    ops.dispatch routes them: FPS, and each kNN to its kernel."""
+    from pointasnl_tpu_torch.ops import dispatch
+
+    out = {"fps": len(tape.calls["farthest_point_sample"])}
+    for k, s, _ in tape.args["knn_point"]:
+        name = "knn_" + dispatch.knn_route(s.shape[1], k)
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def encdec_launches(n: int) -> dict:
+    """A B1 x n forward's launches of the encoder-decoder: FPS 4, and its
+    twelve kNN searches (ENC_KNN) each routed as ops.dispatch routes it
+    (at n = 131072 or 122880, ENC_SINGLE_PASS_LAUNCHES)."""
+    from pointasnl_tpu_torch.ops import dispatch
+
+    levels = [n, n // 8, n // 32, n // 128, n // 256]
+    out = {**ENC_LAUNCHES, "knn_resident": 0}
+    for si, _, k in ENC_KNN:
+        out["knn_" + dispatch.knn_route(levels[si], k)] += 1
+    return out
+
+
+def merge_errs(errs: dict, more: dict) -> dict:
+    for name, e in more.items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    return errs
+
+
+def phase_kitti_blocks(root: Path):
+    """Slice 14, SemanticKITTI blocks: cli.train_semantic_kitti --debug
+    --with_remission at its defaults (B6 x 8192), its first step's searches
+    held to their plain versions (check_tape); cli.test_semantic_kitti
+    --max_scans 1 --num_votes 1 on sequence 08 by sliding windows, a .label
+    file of every raw point written, and its last forward's batch, whose
+    unused rows are zeros (clouds of one repeated point), held search by
+    search to the plain versions (FPS and every kNN; then the ball query on
+    that batch, which a forward does not run); then --single_pass on the
+    whole scan (B1 x KITTI_RINGS * KITTI_AZIMUTHS): launches
+    encdec_launches (ENC_SINGLE_PASS_LAUNCHES at 122880 points), which its
+    recorded searches' routing must give too, and its 16 searches held to
+    their plain versions; then a training batch's host
+    ms on its own. Returns (launches by path, max |err| by kernel, the
+    single pass's (FPS calls, kNN searches))."""
+    from pointasnl_tpu_torch.cli import test_semantic_kitti, train_semantic_kitti
+    from pointasnl_tpu_torch.data import provider
+    from pointasnl_tpu_torch.data.semantic_kitti import SemanticKittiDataset
+    from pointasnl_tpu_torch.ops import geometry
+    from pointasnl_tpu_torch.ops.cuda import ball_query
+
+    t0 = time.perf_counter()
+    data = kitti_block_dataset(root / "dataset")
+    n_scan = KITTI_RINGS * KITTI_AZIMUTHS
+    print(f"kitti blocks: sequences 00 and 08 of {KITTI_BLOCK_SCANS} scans of {n_scan} points "
+          f"written ({time.perf_counter() - t0:.1f} s)")
+    logs, shape = root / "logs", f"B{KITTI_BLOCK_B}x{KITTI_BLOCK_N}"
+    sizes = ["--batch_size", str(KITTI_BLOCK_B), "--num_point", str(KITTI_BLOCK_N)]
+    launches = {}
+    best, rec, launches["seg_kitti_train"] = run_driver(
+        "cli train_semantic_kitti --debug --with_remission", train_semantic_kitti.main,
+        ["--data", str(data), "--log_dir", str(logs), "--debug", "--with_remission"] + sizes,
+        step_want=KITTI_STEP_LAUNCHES, fwd_want=ENC_LAUNCHES, shape=shape)
+    if not 0.0 <= best <= 1.0 or not (logs / "latest" / "state.pt").is_file():
+        raise RuntimeError(f"train_semantic_kitti: best mIoU {best}, or no latest checkpoint")
+    print(f"cli train_semantic_kitti: best mIoU {best:.5f}; eval forwards "
+          f"{', '.join(f'{m:.1f}' for m in forward_ms(rec))} ms (CUDA events)")
+    _, errs = check_tape(rec["tape"], "train_semantic_kitti --with_remission, its first step")
+
+    # Sliding windows. The scan's 195 blocks (fixed by its data) leave the
+    # last B6 batch 3 rows of zeros; a count that filled every batch would
+    # need another batch size, and raises.
+    test_argv = ["--data", str(data), "--model_path", str(logs), "--ckpt", "latest",
+                 "--max_scans", "1", "--num_votes", "1", "--dump_dir", str(root / "dump"),
+                 "--num_point", str(KITTI_BLOCK_N)]
+    bs, pred, tape = KITTI_BLOCK_B, root / "pred", SearchTape()
+    with tape.recording(), sliding_window_builds() as builds:
+        miou, rec, got = run_driver(
+            "cli test_semantic_kitti (sliding windows, 1 vote, 1 scan)", test_semantic_kitti.main,
+            test_argv + ["--batch_size", str(bs), "--save_dir", str(pred)], trains=False,
+            fwd_want=ENC_LAUNCHES)
+    (build_s, blocks), = builds
+    if not blocks % bs:
+        raise RuntimeError(f"test_semantic_kitti: {blocks} blocks fill every B{bs} batch: no "
+                           f"row of zeros to check; take another scan or batch size")
+    launches["seg_kitti_sliding_windows"] = got
+    ms = forward_ms(rec)
+    if not 0.0 <= miou <= 1.0 or rec["forwards"] != -(-blocks // bs):
+        raise RuntimeError(f"test_semantic_kitti: mIoU {miou}, {rec['forwards']} forwards of "
+                           f"{blocks} blocks")
+    files = sorted((pred / "sequences" / "08" / "predictions").glob("*.label"))
+    out = np.fromfile(files[0], dtype=np.uint32) if len(files) == 1 else None
+    if out is None or out.shape != (n_scan,) or not 1 <= out.min() <= out.max() < KITTI_CLASSES:
+        raise RuntimeError(f"test_semantic_kitti: {len(files)} .label files, "
+                           f"{None if out is None else out.shape} labels")
+    print(f"cli test_semantic_kitti (sliding windows): scan of {n_scan} points in "
+          f"{blocks} blocks, built in {build_s:.2f} s on the host; {rec['forwards']} "
+          f"forwards at B{bs}x{KITTI_BLOCK_N}, forward p50 {statistics.median(ms):.3f} ms "
+          f"(CUDA events; {min(ms):.3f}-{max(ms):.3f}); mIoU {miou:.5f}; a .label file of "
+          f"{n_scan} training ids")
+    last = last_forward(tape)
+    npoint, xyz = last.args["farthest_point_sample"][0]
+    pad = repeated_point_clouds(xyz)
+    if pad != bs - blocks % bs or not bool((xyz[blocks % bs:] == 0).all()):
+        raise RuntimeError(f"test_semantic_kitti: the last batch has {pad} clouds of one point, "
+                           f"expected its {bs - blocks % bs} rows of zeros")
+    what = (f"the last sliding-window batch, {pad} of its {bs} clouds one repeated point "
+            f"(0, 0, 0)")
+    for op, calls in last.args.items():
+        for args in calls:
+            x = args[1] if op == "farthest_point_sample" else args[2]
+            if repeated_point_clouds(x[..., :3]) < pad:
+                raise RuntimeError(f"{what}: a {op} call's input has fewer such clouds")
+    merge_errs(errs, check_tape(last, what)[1])
+    new_xyz = geometry.gather_point(xyz, last.calls["farthest_point_sample"][0][1])
+    with torch.no_grad():
+        got = ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, xyz, new_xyz)
+        want = geometry.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, xyz, new_xyz)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError(f"ball query B{bs} {npoint}q/{KITTI_BLOCK_N} ({what}): kernel and "
+                           f"plain differ")
+    print(f"ball query B{bs} {npoint}q/{KITTI_BLOCK_N} ns{REPULSION_NSAMPLE} r{REPULSION_RADIUS} "
+          f"({what}): indices and counts exact (the repeated clouds' counts "
+          f"{got[1][blocks % bs:].unique().tolist()})")
+    del tape, last
+
+    # The whole scan at once.
+    tape = SearchTape()
+    torch.cuda.reset_peak_memory_stats()
+    with tape.recording():
+        miou, rec, got = run_driver(
+            "cli test_semantic_kitti --single_pass", test_semantic_kitti.main,
+            test_argv + ["--single_pass", "--save_dir", str(root / "pred_sp")], trains=False,
+            fwd_want=encdec_launches(n_scan))
+    peak = torch.cuda.max_memory_allocated()
+    launches["seg_kitti_single_pass"] = got
+    want = routed(tape)
+    if {k: v for k, v in got.items() if v} != want or not 0.0 <= miou <= 1.0:
+        raise RuntimeError(f"test_semantic_kitti --single_pass: launches {got}, its searches "
+                           f"route to {want}; mIoU {miou}")
+    print(f"cli test_semantic_kitti --single_pass: B1x{n_scan} forward "
+          f"{forward_ms(rec)[0]:.3f} ms (CUDA events), peak memory {peak / 2**30:.2f} GiB; "
+          f"mIoU {miou:.5f}; searches routed {want}")
+    searches, e = check_tape(tape, f"test_semantic_kitti --single_pass, B1x{n_scan}")
+    merge_errs(errs, e)
+    fps_calls = tape.args["farthest_point_sample"]
+
+    ds = SemanticKittiDataset(str(data), sample_points=KITTI_BLOCK_N, split="train",
+                              with_remission=True, random_state=np.random.RandomState(SEED))
+    rs, idxs, host_ms = np.random.RandomState(SEED), np.arange(len(ds)), []
+    for _ in range(3):
+        t = time.perf_counter()
+        bd = train_semantic_kitti.get_batch(ds, idxs, 0, KITTI_BLOCK_B, KITTI_BLOCK_N, 1)[0]
+        bd[:, :, :3] = provider.rotate_point_cloud_z(bd[:, :, :3], random_state=rs)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+    print(f"kitti blocks: a {shape} training batch (crops with remission and the rotation) "
+          f"alone on the host: {', '.join(f'{m:.1f}' for m in host_ms)} ms")
+    return launches, errs, (fps_calls, searches)
+
+
+def modelnet_tree(root: Path, seed: int = SEED + 70) -> Path:
+    """Write a modelnet40_normal_resampled tree into root: MODELNET_CLASSES
+    classes, MODELNET_TRAIN training and MODELNET_TEST test shapes a class,
+    each MODELNET_POINTS points (x, y, z, unit normal) in CSV, and the
+    shape-name and split lists. Returns root."""
+    rng = np.random.RandomState(seed)
+    names = [f"shape{c:02d}" for c in range(MODELNET_CLASSES)]
+    root.mkdir(parents=True)
+    (root / "modelnet40_shape_names.txt").write_text("\n".join(names) + "\n")
+    splits = {"train": [], "test": []}
+    for c, name in enumerate(names):
+        (root / name).mkdir()
+        for i in range(MODELNET_TRAIN + MODELNET_TEST):
+            sid = f"{name}_{i:04d}"
+            xyz = rng.randn(MODELNET_POINTS, 3) * (1.0 + 0.05 * c)
+            normal = rng.randn(MODELNET_POINTS, 3)
+            normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+            np.savetxt(root / name / f"{sid}.txt", np.concatenate([xyz, normal], 1),
+                       fmt="%.6f", delimiter=",")
+            splits["train" if i < MODELNET_TRAIN else "test"].append(sid)
+    for split, ids in splits.items():
+        (root / f"modelnet40_{split}.txt").write_text("\n".join(ids) + "\n")
+    return root
+
+
+def phase_modelnet(root: Path):
+    """Slice 14, ModelNet40: cli.train_modelnet --AS --normal --debug at
+    its defaults (B16 x 1024), in float32 and with --precision bfloat16, each
+    first step's searches held to their plain versions; then
+    cli.test_modelnet --num_votes 2 --noise on the float32 run's latest
+    checkpoint: the sweep's keys {0, 1, 10, 50, 100}, each accuracy in
+    [0, 1], a forward's launches CLS_FORWARD_LAUNCHES. Returns (launches by
+    path, max |err| by kernel, the float32 first step's (FPS calls, kNN
+    searches))."""
+    from pointasnl_tpu_torch.cli import test_modelnet, train_modelnet
+
+    t0 = time.perf_counter()
+    data = modelnet_tree(root / "modelnet40_normal_resampled")
+    n_test = MODELNET_CLASSES * MODELNET_TEST
+    print(f"modelnet: {MODELNET_CLASSES} classes of {MODELNET_TRAIN} + {MODELNET_TEST} shapes of "
+          f"{MODELNET_POINTS} points with normals written ({time.perf_counter() - t0:.1f} s)")
+    sizes = ["--batch_size", str(MODELNET_B), "--num_point", str(MODELNET_N), "--AS", "--normal"]
+    shape = f"B{MODELNET_B}x{MODELNET_N}"
+    launches, errs = {}, {}
+    for precision, path in (("float32", "cls_modelnet_train"),
+                            ("bfloat16", "cls_modelnet_train_bf16")):
+        logs = root / f"logs_{precision}"
+        best, rec, launches[path] = run_driver(
+            f"cli train_modelnet --AS --normal --debug --precision {precision}",
+            train_modelnet.main, ["--data", str(data), "--log_dir", str(logs), "--debug",
+                                  "--precision", precision] + sizes,
+            step_want=CLS_STEP_LAUNCHES[precision], fwd_want=CLS_FORWARD_LAUNCHES, shape=shape)
+        if not 0.0 <= best <= 1.0 or not (logs / "latest" / "state.pt").is_file():
+            raise RuntimeError(f"train_modelnet ({precision}): best accuracy {best}, or no "
+                               f"latest checkpoint")
+        print(f"cli train_modelnet ({precision}): best accuracy {best:.4f}")
+        searches, e = check_tape(rec["tape"], f"train_modelnet {precision}, its first step")
+        merge_errs(errs, e)
+        if precision == "float32":
+            first = (rec["tape"].args["farthest_point_sample"], searches)
+    sweep, rec, launches["cls_modelnet_test"] = run_driver(
+        "cli test_modelnet --num_votes 2 --noise", test_modelnet.main,
+        ["--data", str(data), "--log_dir", str(root / "logs_float32"), "--ckpt", "latest",
+         "--num_votes", "2", "--noise"] + sizes, trains=False, fwd_want=CLS_FORWARD_LAUNCHES)
+    passes = 1 + len(test_modelnet.NOISE_POINTS)
+    if (sorted(sweep) != [0, 1, 10, 50, 100] or not all(0.0 <= v <= 1.0 for v in sweep.values())
+            or rec["forwards"] != passes * 2 * -(-n_test // MODELNET_B)):
+        raise RuntimeError(f"test_modelnet --noise: sweep {sweep}, {rec['forwards']} forwards")
+    ms = forward_ms(rec)
+    print(f"cli test_modelnet --num_votes 2 --noise: sweep {sweep} (accuracy by noise points, "
+          f"{n_test} test shapes); {rec['forwards']} forwards at {shape}, p50 "
+          f"{statistics.median(ms):.3f} ms (CUDA events)")
+    return launches, errs, first
+
+
+def slice14(dev, mark):
+    """Slice 14's drivers on synthetic data in a temporary directory.
+    Returns what the kernels line and the timing need."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="drivers_") as tmp:
+        root = Path(tmp)
+        launches, errs, single_pass = phase_kitti_blocks(root / "kitti")
+        mark("slice 14 SemanticKITTI block drivers")
+        cls_launches, cls_errs, cls = phase_modelnet(root / "modelnet")
+        mark("slice 14 ModelNet40 drivers")
+    launches.update(cls_launches)
+    return {"launches": launches, "errs": merge_errs(errs, cls_errs),
+            "single_pass": single_pass, "cls": cls}
+
+
 def slice5(dev, card, mark):
     """Slice 5's checks, requests and kernel times: (launches a run of its
     requests, kernel rows, max |err| by kernel)."""
@@ -3952,9 +4354,11 @@ def main() -> int:
     grid = slice13(dev, mark)
     for name, e in grid["errs"].items():
         errs[name] = max(errs[name], e)
+    drivers = slice14(dev, mark)
+    merge_errs(errs, drivers["errs"])
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     print(f"card before timing: {clocks} = {smi(clocks)}")
-    rows = time_kernels(dev, card, gathers, gathers_bf16, enc)
+    rows = time_kernels(dev, card, gathers, gathers_bf16, enc, drivers)
     mark("kernel timing")
     time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer, scene_x,
                flash_state, flash_step, flash_infer,
@@ -3999,7 +4403,8 @@ def main() -> int:
                    "seg_encdec_flash_train": enc["flash_launches"][name],
                    "seg_encdec_sliding_windows": enc["cli_launches"]["sliding windows"][name],
                    "seg_encdec_single_pass": enc["cli_launches"]["single pass"][name],
-                   **{path: got[name] for path, got in grid["launches"].items()}}
+                   **{path: got[name] for path, got in grid["launches"].items()},
+                   **{path: got[name] for path, got in drivers["launches"].items()}}
         lib = [r["library_ms"] for r in shapes]
         records.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],

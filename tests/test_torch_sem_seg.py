@@ -11,7 +11,9 @@ it adds to the port, against the JAX package on the CPU.
 - Goldens: the decoding layer and the SA cell against the independent numpy
   mirrors of ``tests/test_golden_decode.py`` and ``tests/test_golden_sa.py``
   (their tolerance, 1e-3, train mode).
-- ``PointASNLSemSeg`` eval forward at B2 x 512, ``feature_channel`` 0 and 3,
+- ``PointASNLSemSeg`` eval forward at B2 x 512: 21 classes with
+  ``feature_channel`` 0 and 3, and SemanticKITTI's remission model (20
+  classes, ``feature_channel`` 1),
   on batches drawn with replacement as ``data/scannet.py`` draws a crop, so
   they hold exact duplicate points: the level-1 FPS and kNN and the last
   decoding layer's self-kNN and ``three_nn`` (inputs alone) index-exact,
@@ -280,9 +282,9 @@ def crop_batch(seed, feature_channel=0, B=B, N=N, distinct=384):
             np.ones((B, N), np.float32))
 
 
-def state_dict(feature_channel=0, seed=0):
+def state_dict(feature_channel=0, seed=0, num_class=NUM_CLASS):
     """The port's seeded init, with every BN leaf redrawn from numpy."""
-    sd = PointASNLSemSeg(NUM_CLASS, feature_channel, generator=torch.Generator().manual_seed(seed),
+    sd = PointASNLSemSeg(num_class, feature_channel, generator=torch.Generator().manual_seed(seed),
                          device="cpu").state_dict()
     rng = np.random.RandomState(seed)
     draw = {"mean": lambda n: 0.1 * rng.randn(n), "var": lambda n: 0.5 + rng.rand(n),
@@ -294,13 +296,15 @@ def state_dict(feature_channel=0, seed=0):
     return sd
 
 
-@pytest.fixture(scope="module", params=[0, 3], ids=["xyz", "rgb"])
+@pytest.fixture(scope="module", params=[(NUM_CLASS, 0), (NUM_CLASS, 3), (20, 1)],
+                ids=["xyz", "rgb", "remission"])
 def forward(request):
-    """(feature_channel, input, sd, flax variables, JAX logits and l1_xyz)."""
-    fc = request.param
+    """(feature_channel, input, sd, flax variables, JAX logits and l1_xyz);
+    the logits' last axis is the model's class count."""
+    num_class, fc = request.param
     x = crop_batch(30 + fc, fc)[0]
-    sd = state_dict(fc)
-    jmodel = JaxSemSeg(num_class=NUM_CLASS, feature_channel=fc)
+    sd = state_dict(fc, num_class=num_class)
+    jmodel = JaxSemSeg(num_class=num_class, feature_channel=fc)
     variables = flax_variables(jmodel, x, sd)
     logits, end_points = jax.jit(lambda v, x: jmodel.apply(v, x, training=False))(
         variables, jnp.asarray(x))
@@ -317,7 +321,7 @@ def test_weights_convert_under_a_strict_load(forward):
     fc, _, sd, variables = forward[:4]
     back = flax_to_state_dict(variables)
     assert sorted(back) == sorted(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
-    model = PointASNLSemSeg(NUM_CLASS, fc, device="cpu")
+    model = PointASNLSemSeg(forward[4].shape[-1], fc, device="cpu")
     model.load_state_dict(back, strict=True)
     n_params = sum(int(np.size(v)) for v in jax.tree_util.tree_leaves(variables["params"]))
     assert n_params == sum(p.numel() for p in model.parameters())
@@ -325,7 +329,8 @@ def test_weights_convert_under_a_strict_load(forward):
 
 def test_sem_seg_eval_forward_matches_jax(forward):
     fc, x, sd, _, ref_logits, ref_l1_xyz = forward
-    model = PointASNLSemSeg(NUM_CLASS, fc, device="cpu")
+    num_class = ref_logits.shape[-1]
+    model = PointASNLSemSeg(num_class, fc, device="cpu")
     model.load_state_dict(sd, strict=True)
     points = torch.from_numpy(x)
     logits = make_inference_fn(model)(points).numpy()
@@ -352,7 +357,7 @@ def test_sem_seg_eval_forward_matches_jax(forward):
 
     scale = max(float(np.abs(ref_logits).max()), 1.0)
     err = float(np.abs(logits - ref_logits).max())
-    assert logits.shape == (B, N, NUM_CLASS) and np.isfinite(logits).all()
+    assert logits.shape == (B, N, num_class) and np.isfinite(logits).all()
     assert err <= 1e-4 * scale, f"max|port-jax|={err:.3e}, scale {scale:.3e}"
     np.testing.assert_array_equal(logits.argmax(-1), ref_logits.argmax(-1))
 

@@ -19,6 +19,13 @@ GRID_MODULES = ("data.ply", "data.mesh", "data.grid_subsampling", "data.grid_pip
                 "data.scannet_grid", "data.semantic_kitti_config", "data.semantic_kitti_grid",
                 "cli.train_scannet_grid", "cli.test_scannet_grid",
                 "cli.train_semantic_kitti_grid", "cli.test_semantic_kitti_grid")
+# The dataset drivers' data modules: the card's machine has no h5py and no
+# matplotlib, so none of them may import either (nor scikit-learn or PyYAML)
+# when it is imported; the functions that need one import it.
+DATA_MODULES = ("data.provider", "data.pc_util", "data.laserscan_vis", "data.modelnet",
+                "data.semantic_kitti", "data.laserscan", "data.prepare_scannet", "data.augment")
+DRIVER_MODULES = ("cli.train_semantic_kitti", "cli.test_semantic_kitti", "cli.train_modelnet",
+                  "cli.test_modelnet", "cli.visualize_semantic_kitti")
 PKG = Path(pointasnl_tpu_torch.__file__).parent
 
 
@@ -49,7 +56,8 @@ def test_port_sources_found():
             "pointasnl_tpu_torch/cli/test_scannet.py", "pointasnl_tpu_torch/cli/seg_common.py",
             "pointasnl_tpu_torch/data/scannet.py", "pointasnl_tpu_torch/data/provider.py",
             "pointasnl_tpu_torch/utils/config.py", "pointasnl_tpu_torch/utils/logging.py",
-            *(f"pointasnl_tpu_torch/{m.replace('.', '/')}.py" for m in GRID_MODULES)} <= names
+            *(f"pointasnl_tpu_torch/{m.replace('.', '/')}.py"
+              for m in GRID_MODULES + DATA_MODULES + DRIVER_MODULES)} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.relative_to(PKG.parent).as_posix())
@@ -75,6 +83,33 @@ def test_grid_modules_import_without_sklearn_yaml_or_jax():
             "    importlib.import_module('pointasnl_tpu_torch.' + m)\n"
             "from pointasnl_tpu_torch.data.semantic_kitti_config import load_config\n"
             "assert load_config()['learning_map'][252] == 1\n"
+            "print('imported', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("imported")
+
+
+def test_data_modules_import_without_h5py_matplotlib_sklearn_yaml_or_jax():
+    """Each dataset driver's data module, and the drivers, import in a
+    process where ``h5py``, ``matplotlib``, ``sklearn``, ``yaml``, ``jax`` and
+    ``pointasnl_tpu`` cannot be imported (their ``sys.modules`` entries set
+    to None); a numpy-only function of each runs there."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "for name in ('h5py', 'matplotlib', 'sklearn', 'yaml', 'jax', 'pointasnl_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for m in {DATA_MODULES + DRIVER_MODULES!r}:\n"
+            "    importlib.import_module('pointasnl_tpu_torch.' + m)\n"
+            "import numpy as np\n"
+            "from pointasnl_tpu_torch.data import pc_util, provider, modelnet\n"
+            "x = np.random.RandomState(0).rand(2, 32, 3)\n"
+            "assert pc_util.point_cloud_three_views(x[0]).shape == (1500, 500)\n"
+            "assert provider.shuffle_points(x, np.random.RandomState(0)).shape == x.shape\n"
+            "assert modelnet.pc_normalize(x[0]).shape == (32, 3)\n"
             "print('imported', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
                          text=True, timeout=120)
