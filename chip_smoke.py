@@ -81,7 +81,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
      key ranges, C = 1, C != D, C = D = 256), and one forward past the TPU
      kernel's VMEM envelope; then ``PointASNLSemSegRes(21,
      nl_use_flash=True)`` takes 3 train steps at B4 x 10240 and answers 2
-     requests, as in phase 6: a step must launch the flash forward 4 and
+     requests, as in phase 6 (the bfloat16 kernels' checks: phase 18): a
+     step must launch the flash forward 4 and
      backward 4 times beside phase 6's counts, a request the forward 4 times
      and no backward; then phase 7's card-against-CPU step under the flag.
      Timing adds the flash kernels at the path's shapes (device, call, plain
@@ -124,8 +125,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
      each of the 19 equal to the bit to its plain version, to CPU float32
      index_add_ and to a second launch;
      then two seg train steps at B4 x 10240 from one state with one dropout
-     seed, dense and under nl_use_flash, whose gradients, updated parameters
-     and BN statistics must be equal to the bit; then, apart from that
+     seed, dense and under nl_use_flash (and, since slices 11 and 15, in
+     bfloat16, dense and under nl_use_flash), whose gradients, updated
+     parameters and BN statistics must be equal to the bit; then, apart
+     from that
      check, one step of each under torch.use_deterministic_algorithms(True,
      warn_only=True), printing the ops PyTorch flags.
 
@@ -174,7 +177,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      their plain versions and CPU index_add_; two steps from one state
      equal to the bit; phase 7's card-against-CPU step for this model on a
      B2 x 2048 crop; one ``nl_use_flash`` step (flash forward and backward
-     4 each); then ``cli.train_scannet --debug`` at its defaults (B6 x
+     4 each) and, for slice 15, one in bfloat16 and a bfloat16 request (the
+     bfloat16 flash forward and backward 4 each, the float32 ones 0); then
+     ``cli.train_scannet --debug`` at its defaults (B6 x
      8192), ``cli.test_scannet`` with one vote on one scene and with
      ``--single_pass true --nl_block_size 4096`` on that scene of 131072
      points. Timing adds the path's kernels (device, call, plain and bound
@@ -187,7 +192,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
      and meshes): ``cli.train_scannet_grid --debug --num_point 10240
      --in_radius 2`` (B4, the 66.6 % recipe), the same with ``--nl_flash
      true``, then ``cli.test_scannet_grid --split validation --max_rounds
-     1``. SemanticKITTI grid (sequences 00 and 08 of 4 scans of 122880
+     1``; for slice 15 the trainer with ``--nl_flash true`` and its tester
+     once more, each in a python3 subprocess whose environment holds
+     POINTASNL_COMPUTE_DTYPE=bfloat16 (driver_child: the bfloat16 flash
+     forward and backward 4 each a step, the float32 ones 0, the gather
+     backwards float32 and bfloat16 19 in all). SemanticKITTI grid (sequences 00 and 08 of 4 scans of 122880
      points): ``cli.train_semantic_kitti_grid --prepare_data --debug`` at its
      defaults (B4 x 10240, kNN crops), then ``cli.test_semantic_kitti_grid
      --test_id 8 --max_rounds 1``. Each train step must launch FPS 4, the
@@ -228,6 +237,25 @@ Phases (any failure raises, and the script exits non-zero with no result):
      host ms alone. Timing adds the single pass's and the ModelNet step's
      searches at their shapes (paths seg_kitti_single_pass, cls_modelnet).
 
+ 18. Slice 15, the flash kernels in bfloat16, run with phase 11's checks
+     and after phase 14: phase 11's kernel checks once more on the same
+     inputs rounded to bfloat16, against the bfloat16 plain versions (which
+     round o, delta and each 128-query tile's dK and dV where the TPU
+     kernels round): o within FLASH_BF16_RTOL, dq, dk, dv within
+     FLASH_BF16_GRAD_RTOL, lse within FLASH_RTOL, and o, dq, dk, dv equal
+     to the bit on the shares FLASH_BF16_BITS_MIN gives; then
+     ``PointASNLSemSegRes(21, nl_use_flash=True)`` in bfloat16
+     (phase_seg_bf16_flash): JAX's bfloat16 gate against the card's float32
+     flash step from one state (searches replayed; BF16_LOSS_RTOL,
+     BF16_D_MAX), 3 train steps at B4 x 10240 (the bfloat16 flash forward
+     and backward 4 each a step, the float32 ones 0, beside phase 14's
+     bfloat16 counts) and 2 bfloat16 requests (the bfloat16 forward 4 each).
+     Timing adds the bfloat16 kernels at the seg step's and the
+     encoder-decoder's four shapes (device, call, plain and bound ms, SDPA
+     on the same bfloat16 inputs as the yardstick), the bfloat16 flash step
+     and request in turns with the float32 flash and bfloat16 dense steps,
+     and a profiler window over 3 bfloat16 flash steps.
+
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
 """
@@ -235,6 +263,7 @@ last line is ``{"ok": true, "device": {...}}``. TF32 is off for every number.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -278,6 +307,16 @@ KERNELS = {  # "symbol": what the kernel's name holds in a profiler trace
                   "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:170",
                   "symbol": ("flash_bwd_delta_kernel", "flash_bwd_kernel",
                              "flash_bwd_dq_sum_kernel")},
+    # The same two TPU kernels in bfloat16 (q, k, v, o and dO bfloat16, as
+    # JAX's non-local cell hands them over under a bfloat16 compute dtype):
+    # the kernels' __nv_bfloat16 instantiations, counted apart.
+    "flash_fwd_bf16": {"source": "pointasnl_tpu_torch/csrc/flash_attention_bf16.cu",
+                       "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:90",
+                       "symbol": "flash_fwd_kernel"},
+    "flash_bwd_bf16": {"source": "pointasnl_tpu_torch/csrc/flash_attention_bf16.cu",
+                       "replaces": "pointasnl_tpu/ops/pallas/flash_attention.py:170",
+                       "symbol": ("flash_bwd_delta_kernel", "flash_bwd_kernel",
+                                  "flash_bwd_dq_sum_kernel")},
     # Not a Pallas kernel: the TPU package's deterministic gather VJP. A call
     # runs the plan (one an index tensor, shared by the gathers of that
     # tensor: its count and fill, then its ranking) and the sum; its rows
@@ -431,6 +470,48 @@ FLASH_FWD_ONLY = {"past the TPU's envelope, N 131072": (1, 512, 131072, 32, 32, 
 # float32 with sums in other orders, and at q x 30 the scores reach ~1e2,
 # whose float32 rounding moves p by ~1e-5 relative.
 FLASH_RTOL, FLASH_GRAD_RTOL = 1e-5, 1e-4
+# The bfloat16 kernels, on the cases' inputs rounded to bfloat16, against the
+# bfloat16 plain versions, which round o, delta and each 128-query tile's dK
+# and dV where the TPU kernels' bfloat16 refs round them: o within
+# FLASH_BF16_RTOL (half a bfloat16 ulp at the top of its range) and dq, dk,
+# dv within FLASH_BF16_GRAD_RTOL (an ulp) of the largest |value|, plus
+# YARDSTICK times the plain version's distance from float64 dense attention
+# on the same inputs (with one key, dK is bfloat16 rounding noise on both
+# sides); lse (float32) within FLASH_RTOL as above. Each output must also
+# equal the plain version's to the bit on the share of its elements that
+# FLASH_BF16_BITS_MIN gives (dq, dk and dv where the softmax spans more than
+# one key), for the tolerance alone lets other rounding points through:
+#   - dk and dv rounded once at the end, as float32 does, equal the TPU
+#     kernel's on ~54-71 % only (tests/test_torch_flash_bf16.py);
+#   - kernels built to round p to bfloat16 before p v, or dS before dS k,
+#     as FlashAttention-2 rounds them, stay within the tolerance at every
+#     case but give an o equal to the plain version's on 59-92 % and a dq
+#     on 57-70 % of its elements (on an H100; they equal it at N = 1,
+#     where p = 1, and o at q x 30, whose rows are near one-hot).
+# The kernels themselves reach 99.87 % (o) and 99.37 % (dq) at the least.
+FLASH_BF16_RTOL, FLASH_BF16_GRAD_RTOL = 2.0 ** -8, 2.0 ** -7
+FLASH_BF16_BITS_MIN = {"o": 0.99, "dq": 0.97, "dk": 0.90, "dv": 0.90}
+
+# Each kernel wrapper's launch counter: name -> (module of ops.cuda, attribute).
+COUNTERS = {"fps": ("fps", "launches"), "knn_resident": ("knn", "launches"),
+            "ball_query": ("ball_query", "launches"), "knn_spatial": ("knn_spatial", "launches"),
+            "knn_streaming": ("knn_streaming", "launches"),
+            "flash_fwd": ("flash_attention", "fwd_launches"),
+            "flash_bwd": ("flash_attention", "bwd_launches"),
+            "gather_bwd": ("gather_backward", "launches"),
+            "gather_plan": ("gather_backward", "plan_launches"),
+            "gather_bwd_bf16": ("gather_backward", "bf16_launches"),
+            "flash_fwd_bf16": ("flash_attention", "fwd_launches_bf16"),
+            "flash_bwd_bf16": ("flash_attention", "bwd_launches_bf16")}
+
+
+def launch_counts(**nonzero) -> dict:
+    """Launches expected of every counter: those given, 0 for the rest."""
+    unknown = set(nonzero) - set(COUNTERS)
+    if unknown:
+        raise KeyError(f"no launch counter {sorted(unknown)}")
+    return {**dict.fromkeys(COUNTERS, 0), **nonzero}
+
 
 # Slice 5: whole-scene serving past 2^21 points, one B1 surface scene of
 # 2^21 + 2^17 = 17 x 131072 points at slice 3's density (scene() scales the
@@ -448,9 +529,7 @@ BIG_LEVELS = [BIG_N, BIG_N // 8, BIG_N // 32, BIG_N // 128, BIG_N // 256]
 # (support 17408 to 278528); the resident kernel layer4_2 (8704 points) and
 # fa_layer1's three_nn; FPS the four levels, the first in the grid design and
 # the other three in the cluster design.
-BIG_LAUNCHES = {"fps": 4, "knn_resident": 2, "ball_query": 0, "knn_spatial": 8,
-                "knn_streaming": 1, "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0,
-                "gather_plan": 0, "gather_bwd_bf16": 0}
+BIG_LAUNCHES = launch_counts(fps=4, knn_resident=2, knn_spatial=8, knn_streaming=1)
 
 # Slice 12: the encoder-decoder pointasnl_sem_seg as the ScanNet CLIs run
 # it (PointASNLSemSeg(21, feature_channel=3), B6 x 8192, RGB), on crops that
@@ -468,9 +547,7 @@ ENC_KNN = [(0, 1, 32), (1, 2, 32), (2, 3, 32), (3, 4, 32), (4, 3, 3), (3, 3, 16)
 # A train step's gather backwards and their plans (tests/test_torch_sem_seg.py
 # counts them on the CPU), and a forward's searches.
 ENC_GATHER_BWD, ENC_GATHER_PLANS = 18, 12
-ENC_LAUNCHES = {"fps": 4, "knn_resident": 12, "ball_query": 0, "knn_spatial": 0,
-                "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0,
-                "gather_plan": 0, "gather_bwd_bf16": 0}
+ENC_LAUNCHES = launch_counts(fps=4, knn_resident=12)
 # test_scannet --single_pass on one scene of ENC_SCENE_N points (B1): the
 # five searches whose support passes 12288 points go to the spatial kernel
 # (levels 1-2's SA groupings, the self-kNN of 16 at 131072 and 16384 points,
@@ -506,10 +583,8 @@ GRID_SCENES, GRID_SCENE_N, GRID_SCENE_EXTENT, GRID_MESH_EVERY = 4, 10 ** 6, 6.0,
 KITTI_SCANS, KITTI_RINGS, KITTI_AZIMUTHS, KITTI_MAX_RANGE = 4, 64, 1920, 80.0
 # A train step of PointASNLSemSegRes(21) at B4 x 10240 (cell 2's counts,
 # feature_channel 3 or 0 alike), and a forward's.
-GRID_STEP_LAUNCHES = {"fps": 4, "knn_resident": 11, "ball_query": 1, "knn_spatial": 0,
-                      "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0,
-                      "gather_bwd": SEG_GATHER_BWD, "gather_plan": SEG_GATHER_PLANS,
-                      "gather_bwd_bf16": 0}
+GRID_STEP_LAUNCHES = launch_counts(fps=4, knn_resident=11, ball_query=1,
+                                   gather_bwd=SEG_GATHER_BWD, gather_plan=SEG_GATHER_PLANS)
 GRID_FORWARD_LAUNCHES = {**GRID_STEP_LAUNCHES, "ball_query": 0, "gather_bwd": 0,
                          "gather_plan": 0}
 
@@ -547,11 +622,17 @@ CLS_STEP_LAUNCHES = {"float32": {**CLS_FORWARD_LAUNCHES, "gather_bwd": 2, "gathe
 # on the tensor cores (dense) and HBM bandwidth, for each kernel's bound.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 # The flash backward's products run on the tensor cores in TF32, three
-# passes a product for float32 accuracy (csrc/flash_attention.cu): its bound
-# counts each float32 operation three times at the TF32 rate.
-FLASH_BWD_TF32_PASSES = 3
+# passes a product for float32 accuracy (csrc/flash_attention.cuh): its bound
+# counts each float32 operation three times at the TF32 rate. In bfloat16
+# only the float32 operand (p or dS) is split: two passes (mma2).
+FLASH_BWD_TF32_PASSES, FLASH_BWD_BF16_TF32_PASSES = 3, 2
+# The fastest exact rate for a product of a float32 and a bfloat16 operand:
+# three passes on the bfloat16 tensor cores, the float32 operand split into
+# bfloat16 hi + mid + lo (the bfloat16 operand exact).
+PEAK_F32_BY_BF16_FLOPS = PEAK_BF16_FLOPS / 3
 OUT_DIR = Path(__file__).resolve().parent / "build"  # gitignored
 
 
@@ -711,6 +792,31 @@ def flash_bwd_bound(B, M, N, C, D, passes: int = FLASH_BWD_TF32_PASSES):
     if passes is None:
         return bound(nbytes, ops)
     return bound(nbytes, ops * passes, PEAK_TF32_FLOPS)
+
+
+def flash_fwd_bound_bf16(B, M, N, C, D, pair: float = PEAK_BF16_FLOPS,
+                         mixed: float = PEAK_F32_BY_BF16_FLOPS):
+    # q, k, v in and o out at 2 bytes an element, lse out at 4. Products at
+    # the card's peak for their operands: q k^T, of two bfloat16 operands, at
+    # `pair`, the bfloat16 tensor cores' rate; p v, whose p is float32 (JAX's
+    # jnp.dot promotes v), at `mixed`, three bfloat16 passes. The design runs
+    # both as float32 FFMAs: pair=mixed=PEAK_F32_FLOPS counts that.
+    nbytes = B * (M * C + N * (C + D) + M * D) * 2 + B * M * 4
+    t_ops = 2 * B * M * N * C / pair + 2 * B * M * N * D / mixed
+    return bound(nbytes, t_ops * PEAK_F32_FLOPS)
+
+
+def flash_bwd_bound_bf16(B, M, N, C, D, pair: float = PEAK_BF16_FLOPS,
+                         mixed: float = PEAK_F32_BY_BF16_FLOPS):
+    # q, k, v, o, dO in and dq, dk, dv out at 2 bytes an element, lse in at
+    # 4. s and dO v^T (two bfloat16 operands) at `pair`, the bfloat16 tensor
+    # cores' rate; dQ, dK and dV, each of a float32 operand (dS or p), at
+    # `mixed`, three bfloat16 passes. The design takes s and dP in one TF32
+    # pass and the others in FLASH_BWD_BF16_TF32_PASSES: pair=PEAK_TF32_FLOPS,
+    # mixed=PEAK_TF32_FLOPS / FLASH_BWD_BF16_TF32_PASSES counts that.
+    nbytes = B * (2 * M * C + 2 * M * D + 2 * N * (C + D)) * 2 + B * M * 4
+    t_ops = 2 * B * M * N * (C + D) / pair + 2 * B * M * N * (2 * C + D) / mixed
+    return bound(nbytes, t_ops * PEAK_F32_FLOPS)
 
 
 def flash_fwd_symbols(B, M, N, C, D):
@@ -1029,24 +1135,21 @@ def layer_indices(xyz: torch.Tensor, npoint: int, k: int):
     return fps_idx.cpu(), knn_idx.cpu()
 
 
-def counts():
-    from pointasnl_tpu_torch.ops.cuda import (ball_query, flash_attention, fps, gather_backward,
-                                              knn, knn_spatial, knn_streaming)
+def _counter_modules():
+    return {name: importlib.import_module(f"pointasnl_tpu_torch.ops.cuda.{module}")
+            for name, (module, _) in COUNTERS.items()}
 
-    return {"fps": fps.launches, "knn_resident": knn.launches, "ball_query": ball_query.launches,
-            "knn_spatial": knn_spatial.launches, "knn_streaming": knn_streaming.launches,
-            "flash_fwd": flash_attention.fwd_launches, "flash_bwd": flash_attention.bwd_launches,
-            "gather_bwd": gather_backward.launches, "gather_plan": gather_backward.plan_launches,
-            "gather_bwd_bf16": gather_backward.bf16_launches}
+
+def counts():
+    """Every kernel wrapper's launch count, by COUNTERS' names."""
+    mods = _counter_modules()
+    return {name: getattr(mods[name], attr) for name, (_, attr) in COUNTERS.items()}
 
 
 def reset_counts():
-    from pointasnl_tpu_torch.ops.cuda import (ball_query, flash_attention, fps, gather_backward,
-                                              knn, knn_spatial, knn_streaming)
-
-    fps.launches = knn.launches = ball_query.launches = knn_spatial.launches = 0
-    knn_streaming.launches = flash_attention.fwd_launches = flash_attention.bwd_launches = 0
-    gather_backward.launches = gather_backward.plan_launches = gather_backward.bf16_launches = 0
+    mods = _counter_modules()
+    for name, (_, attr) in COUNTERS.items():
+        setattr(mods[name], attr, 0)
 
 
 def phase_cls(dev):
@@ -1065,9 +1168,7 @@ def phase_cls(dev):
     torch.cuda.synchronize()
     launches = counts()
     print(f"cls slice: {REQUESTS} requests of B{BATCH}x{NUM_POINT}; launches {launches}")
-    if launches != {"fps": 2 * REQUESTS, "knn_resident": 2 * REQUESTS, "ball_query": 0,
-                    "knn_spatial": 0, "knn_streaming": 0, "flash_fwd": 0, "flash_bwd": 0,
-                    "gather_bwd": 0, "gather_plan": 0, "gather_bwd_bf16": 0}:
+    if launches != launch_counts(fps=2 * REQUESTS, knn_resident=2 * REQUESTS):
         raise RuntimeError(f"cls launches {launches}, expected 2 FPS and 2 kNN a request")
 
     for r, (x, out) in enumerate(zip(clouds, logits)):
@@ -1157,11 +1258,10 @@ def phase_seg(dev, flash: bool = False):
     print(f"{label} slice: PointASNLSemSegRes({SEG_CLASSES}, nl_use_flash={flash}), {n_params} "
           f"parameters; {SEG_STEPS} train steps of B{SEG_B}x{SEG_N}; launches {launches}")
     nl = 4 * flash
-    if launches != {"fps": 4 * SEG_STEPS, "knn_resident": 11 * SEG_STEPS,
-                    "ball_query": SEG_STEPS, "knn_spatial": 0, "knn_streaming": 0,
-                    "flash_fwd": nl * SEG_STEPS, "flash_bwd": nl * SEG_STEPS,
-                    "gather_bwd": SEG_GATHER_BWD * SEG_STEPS,
-                    "gather_plan": SEG_GATHER_PLANS * SEG_STEPS, "gather_bwd_bf16": 0}:
+    if launches != launch_counts(fps=4 * SEG_STEPS, knn_resident=11 * SEG_STEPS,
+                                 ball_query=SEG_STEPS, flash_fwd=nl * SEG_STEPS,
+                                 flash_bwd=nl * SEG_STEPS, gather_bwd=SEG_GATHER_BWD * SEG_STEPS,
+                                 gather_plan=SEG_GATHER_PLANS * SEG_STEPS):
         raise RuntimeError(f"{label} train launches {launches}, expected FPS 4, kNN 11, "
                            f"ball query 1, flash forward {nl} and backward {nl}, gather "
                            f"backward {SEG_GATHER_BWD} on {SEG_GATHER_PLANS} plans a step")
@@ -1186,10 +1286,8 @@ def phase_seg(dev, flash: bool = False):
     serve_launches = counts()
     print(f"{label} serve: {SEG_REQUESTS} requests of B{SEG_B}x{SEG_N}; launches "
           f"{serve_launches}")
-    if serve_launches != {"fps": 4 * SEG_REQUESTS, "knn_resident": 11 * SEG_REQUESTS,
-                          "ball_query": 0, "knn_spatial": 0, "knn_streaming": 0,
-                          "flash_fwd": nl * SEG_REQUESTS, "flash_bwd": 0, "gather_bwd": 0,
-                          "gather_plan": 0, "gather_bwd_bf16": 0}:
+    if serve_launches != launch_counts(fps=4 * SEG_REQUESTS, knn_resident=11 * SEG_REQUESTS,
+                                       flash_fwd=nl * SEG_REQUESTS):
         raise RuntimeError(f"{label} serve launches {serve_launches}, expected FPS 4, kNN 11, "
                            f"flash forward {nl} and no ball query, flash or gather backward a "
                            f"request")
@@ -1535,7 +1633,8 @@ def twice_from_one_state(label: str, model, batch, dtype: str = "float32") -> li
 
 def phase_determinism(dev):
     """Two seg train steps at B4 x 10240 from one state, with one dropout
-    seed, dense, under nl_use_flash and in bfloat16: their gradients,
+    seed, dense, under nl_use_flash, in bfloat16 and under nl_use_flash in
+    bfloat16 (the bfloat16 flash kernels): their gradients,
     updated parameters and BN statistics must be equal to the bit. Then one
     diagnostic step of
     each under torch.use_deterministic_algorithms(True, warn_only=True), apart
@@ -1549,7 +1648,8 @@ def phase_determinism(dev):
     batch = seg_batch(600, SEG_B, SEG_N, SEG_SIDE, dev)
     models, failed = {}, []
     for label, flash, dtype in (("seg", False, "float32"), ("flash seg", True, "float32"),
-                                ("bf16 seg", False, "bfloat16")):
+                                ("bf16 seg", False, "bfloat16"),
+                                ("bf16 flash seg", True, "bfloat16")):
         model = PointASNLSemSegRes(SEG_CLASSES, nl_use_flash=flash,
                                    generator=torch.Generator().manual_seed(SEED + 4), device=dev)
         init = copy.deepcopy(model.state_dict())
@@ -1701,9 +1801,8 @@ def phase_scene(dev):
     print(f"whole scene: {SCENE_REQUESTS} requests of B1x{SCENE_N} (nl_kv_block_size "
           f"{SCENE_BLOCK}); launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    want = {"fps": 4 * SCENE_REQUESTS, "knn_resident": 8 * SCENE_REQUESTS, "ball_query": 0,
-            "knn_spatial": 3 * SCENE_REQUESTS, "knn_streaming": 0, "flash_fwd": 0,
-            "flash_bwd": 0, "gather_bwd": 0, "gather_plan": 0, "gather_bwd_bf16": 0}
+    want = launch_counts(fps=4 * SCENE_REQUESTS, knn_resident=8 * SCENE_REQUESTS,
+                         knn_spatial=3 * SCENE_REQUESTS)
     if launches != want:
         raise RuntimeError(f"whole-scene launches {launches}, expected FPS 4, spatial kNN 3, "
                            f"resident kNN 8 and no ball query a request")
@@ -1801,34 +1900,53 @@ def flash_close(what: str, got, plain, ref64, rtol: float) -> float:
 
 
 def phase_flash(dev):
-    """The flash kernels against their plain versions: the largest |kernel -
-    plain| of the forward (o, lse) and of the backward (dq, dk, dv)."""
+    """The flash kernels against their plain versions, in float32 and in
+    bfloat16 (the same cases' inputs rounded to it): the largest |kernel -
+    plain| of each forward (o, lse) and backward (dq, dk, dv)."""
     from pointasnl_tpu_torch.ops import flash_attention as fa
     from pointasnl_tpu_torch.ops.cuda import flash_attention as cuda_flash
 
-    worst = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    worst = {"flash_fwd": 0.0, "flash_bwd": 0.0, "flash_fwd_bf16": 0.0, "flash_bwd_bf16": 0.0}
     cases = [(n, c, True) for n, c in FLASH_CASES.items()]
     cases += [(n, c, False) for n, c in FLASH_FWD_ONLY.items()]
-    for name, (B, M, N, C, D, scaled, qmul), backward in cases:
-        scale = fa.flash_scale(C, scaled)
-        q, k, v, do = flash_inputs(name, B, M, N, C, D, qmul, dev)
-        o, lse = cuda_flash.flash_forward(q, k, v, scale)
-        po, plse = fa.flash_forward_reference(q, k, v, scale)
-        if backward:
-            grads = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
-            pgrads = fa.flash_backward_reference(q, k, v, po, plse, do, scale)
-        torch.cuda.synchronize()
-        o64, lse64, g64 = dense64(q, k, v, do if backward else None, scale)
-        errs = {"o": flash_close(f"{name} o", o, po, o64, FLASH_RTOL),
-                "lse": flash_close(f"{name} lse", lse, plse, lse64, FLASH_RTOL)}
-        worst["flash_fwd"] = max(worst["flash_fwd"], errs["o"], errs["lse"])
-        if backward:
-            for what, got, plain, ref in zip(("dq", "dk", "dv"), grads, pgrads, g64):
-                errs[what] = flash_close(f"{name} {what}", got, plain, ref, FLASH_GRAD_RTOL)
-                worst["flash_bwd"] = max(worst["flash_bwd"], errs[what])
-        print(f"flash {name}, B{B} M{M} N{N} C{C} D{D}: within tolerance; max |kernel - plain| "
-              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-        del q, k, v, do, o64, g64
+    for dtype, tag, rtols in ((torch.float32, "", (FLASH_RTOL, FLASH_GRAD_RTOL)),
+                              (torch.bfloat16, "_bf16", (FLASH_BF16_RTOL, FLASH_BF16_GRAD_RTOL))):
+        for name, (B, M, N, C, D, scaled, qmul), backward in cases:
+            scale = fa.flash_scale(C, scaled)
+            q, k, v, do = (t.to(dtype) for t in flash_inputs(name, B, M, N, C, D, qmul, dev))
+            o, lse = cuda_flash.flash_forward(q, k, v, scale)
+            po, plse = fa.flash_forward_reference(q, k, v, scale)
+            if backward:
+                grads = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
+                pgrads = fa.flash_backward_reference(q, k, v, po, plse, do, scale)
+            torch.cuda.synchronize()
+            if o.dtype != dtype or lse.dtype != torch.float32 or (
+                    backward and any(g.dtype != dtype for g in grads)):
+                raise RuntimeError(f"flash {name} in {dtype}: outputs of dtypes {o.dtype}, "
+                                   f"{lse.dtype}" + (f", {[g.dtype for g in grads]}"
+                                                     if backward else ""))
+            o64, lse64, g64 = dense64(q, k, v, do if backward else None, scale)
+            errs = {"o": flash_close(f"{name}{tag} o", o, po, o64, rtols[0]),
+                    "lse": flash_close(f"{name}{tag} lse", lse, plse, lse64, FLASH_RTOL)}
+            worst["flash_fwd" + tag] = max(worst["flash_fwd" + tag], errs["o"], errs["lse"])
+            bits = {}
+            if backward:
+                for what, got, plain, ref in zip(("dq", "dk", "dv"), grads, pgrads, g64):
+                    errs[what] = flash_close(f"{name}{tag} {what}", got, plain, ref, rtols[1])
+                    worst["flash_bwd" + tag] = max(worst["flash_bwd" + tag], errs[what])
+                    bits[what] = float((got == plain).float().mean())
+            bits["o"] = float((o == po).float().mean())
+            short = [f"{k} {100 * v:.2f} % (need {100 * FLASH_BF16_BITS_MIN[k]:g} %)"
+                     for k, v in bits.items()
+                     if tag and (k == "o" or N > 1) and v < FLASH_BF16_BITS_MIN[k]]
+            if short:
+                raise RuntimeError(f"flash {name} bfloat16: equal to the plain version's to "
+                                   f"the bit on too few elements: {', '.join(short)}")
+            print(f"flash {name} {str(dtype)[6:]}, B{B} M{M} N{N} C{C} D{D}: within tolerance; "
+                  f"max |kernel - plain| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + "; equal to the bit " + ", ".join(f"{k} {100 * v:.2f} %"
+                                                      for k, v in bits.items()))
+            del q, k, v, do, o64, g64
     return worst
 
 
@@ -1943,33 +2061,47 @@ def time_kernels(dev, card, gathers, gathers_bf16, enc, drivers):
                 timing=HEAVY if N * M >= 10**7 else LIGHT, search=(k, s, q))
     # The flash seg step's four non-local cells; F.scaled_dot_product_attention
     # at the same shapes is the yardstick (library_ms): the forward, and for
-    # the backward the forward with its backward.
+    # the backward the forward with its backward. In bfloat16 (slice 15) SDPA
+    # rounds p to bfloat16, where the kernels keep it float32: a yardstick,
+    # not the same function.
     from pointasnl_tpu_torch.ops import flash_attention as fa
     from pointasnl_tpu_torch.ops.cuda import flash_attention as cuda_flash
 
-    for B, M, N, C, D in FLASH_SEG:
-        q, k, v, do = flash_inputs("time", B, M, N, C, D, 1.0, dev)
-        scale = fa.flash_scale(C)
-        o, lse = cuda_flash.flash_forward(q, k, v, scale)
-        timing = HEAVY if M * N >= 10**7 else LIGHT
+    def add_flash(path, shapes, dtype=torch.float32):
+        tag = "_bf16" if dtype == torch.bfloat16 else ""
+        for B, M, N, C, D in shapes:
+            q, k, v, do = (t.to(dtype) for t in flash_inputs("time", B, M, N, C, D, 1.0, dev))
+            scale = fa.flash_scale(C)
+            o, lse = cuda_flash.flash_forward(q, k, v, scale)
+            timing = HEAVY if M * N >= 10**7 else LIGHT
 
-        def sdpa_fwd_bwd(q=q, k=k, v=v, do=do, scale=scale):
-            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-            out = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
-            torch.autograd.grad(out, (q, k, v), do)
+            def sdpa_fwd_bwd(q=q, k=k, v=v, do=do, scale=scale):
+                q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+                out = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+                torch.autograd.grad(out, (q, k, v), do)
 
-        shape = f"B{B} {M}q/{N} C{C} D{D}"
-        add("flash_fwd", "seg_flash", shape,
-            lambda q=q, k=k, v=v, s=scale: fa.flash_forward_reference(q, k, v, s),
-            lambda q=q, k=k, v=v, s=scale: cuda_flash.flash_forward(q, k, v, s),
-            flash_fwd_bound(B, M, N, C, D), timing, symbol=flash_fwd_symbols(B, M, N, C, D),
-            library=lambda q=q, k=k, v=v, s=scale:
-                torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s))
-        add("flash_bwd", "seg_flash", shape,
-            lambda a=(q, k, v, o, lse, do, scale): fa.flash_backward_reference(*a),
-            lambda a=(q, k, v, o, lse, do, scale): cuda_flash.flash_backward(*a),
-            flash_bwd_bound(B, M, N, C, D), timing, symbol=flash_bwd_symbols(B, M, N, C, D),
-            library=sdpa_fwd_bwd, bound_f32_ms=flash_bwd_bound(B, M, N, C, D, None)[0])
+            shape = f"B{B} {M}q/{N} C{C} D{D}"
+            add("flash_fwd" + tag, path, shape,
+                lambda q=q, k=k, v=v, s=scale: fa.flash_forward_reference(q, k, v, s),
+                lambda q=q, k=k, v=v, s=scale: cuda_flash.flash_forward(q, k, v, s),
+                (flash_fwd_bound_bf16 if tag else flash_fwd_bound)(B, M, N, C, D), timing,
+                symbol=flash_fwd_symbols(B, M, N, C, D),
+                library=lambda q=q, k=k, v=v, s=scale:
+                    torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s),
+                **({"bound_design_ms": flash_fwd_bound_bf16(
+                    B, M, N, C, D, PEAK_F32_FLOPS, PEAK_F32_FLOPS)[0]} if tag else {}))
+            extra = ({"bound_design_ms": flash_bwd_bound_bf16(
+                         B, M, N, C, D, PEAK_TF32_FLOPS,
+                         PEAK_TF32_FLOPS / FLASH_BWD_BF16_TF32_PASSES)[0]}
+                     if tag else {"bound_f32_ms": flash_bwd_bound(B, M, N, C, D, None)[0]})
+            add("flash_bwd" + tag, path, shape,
+                lambda a=(q, k, v, o, lse, do, scale): fa.flash_backward_reference(*a),
+                lambda a=(q, k, v, o, lse, do, scale): cuda_flash.flash_backward(*a),
+                (flash_bwd_bound_bf16 if tag else flash_bwd_bound)(B, M, N, C, D), timing,
+                symbol=flash_bwd_symbols(B, M, N, C, D), library=sdpa_fwd_bwd, **extra)
+
+    add_flash("seg_flash", FLASH_SEG)
+    add_flash("seg_flash_bf16", FLASH_SEG, torch.bfloat16)
 
     # The seg step's gather backwards; index_add_ (atomics on the card) is
     # the one PyTorch call computing the same sums, in another order. A row
@@ -2062,29 +2194,8 @@ def time_kernels(dev, card, gathers, gathers_bf16, enc, drivers):
         lambda: ball_query.query_ball_point(REPULSION_RADIUS, REPULSION_NSAMPLE, l1, l1),
         ball_bound(n1, n1, ENC_B, REPULSION_NSAMPLE, idx, cnt),
         mean_count=float(cnt.float().mean()))
-    for B, M, N, C, D in FLASH_ENC:
-        q, k, v, do = flash_inputs("time", B, M, N, C, D, 1.0, dev)
-        scale = fa.flash_scale(C)
-        o, lse = cuda_flash.flash_forward(q, k, v, scale)
-        timing = HEAVY if M * N >= 10**7 else LIGHT
-        shape = f"B{B} {M}q/{N} C{C} D{D}"
-        add("flash_fwd", "seg_encdec", shape,
-            lambda q=q, k=k, v=v, s=scale: fa.flash_forward_reference(q, k, v, s),
-            lambda q=q, k=k, v=v, s=scale: cuda_flash.flash_forward(q, k, v, s),
-            flash_fwd_bound(B, M, N, C, D), timing, symbol=flash_fwd_symbols(B, M, N, C, D),
-            library=lambda q=q, k=k, v=v, s=scale:
-                torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s))
-
-        def sdpa_fwd_bwd(q=q, k=k, v=v, do=do, scale=scale):
-            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-            out = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
-            torch.autograd.grad(out, (q, k, v), do)
-
-        add("flash_bwd", "seg_encdec", shape,
-            lambda a=(q, k, v, o, lse, do, scale): fa.flash_backward_reference(*a),
-            lambda a=(q, k, v, o, lse, do, scale): cuda_flash.flash_backward(*a),
-            flash_bwd_bound(B, M, N, C, D), timing, symbol=flash_bwd_symbols(B, M, N, C, D),
-            library=sdpa_fwd_bwd, bound_f32_ms=flash_bwd_bound(B, M, N, C, D, None)[0])
+    add_flash("seg_encdec", FLASH_ENC)
+    add_flash("seg_encdec_bf16", FLASH_ENC, torch.bfloat16)
     # test_scannet --single_pass's twelve searches on the scene of
     # ENC_SCENE_N points, on the inputs the pass gave them (path
     # seg_encdec_single_pass); its four FPS calls have the whole-scene
@@ -2181,7 +2292,7 @@ def time_kernels(dev, card, gathers, gathers_bf16, enc, drivers):
             if r.get("sum_ms") is not None:
                 tested += f", the sum kernel {r['sum_ms']:.4f} ms on the device"
             lib = (f", {lib_name} {r['library_ms']:.4f} ms"
-                   f"{' (forward and backward)' if name == 'flash_bwd' else ''}"
+                   f"{' (forward and backward)' if name.startswith('flash_bwd') else ''}"
                    if r["library_ms"] is not None else "")
             if "streaming_ms" in r:
                 lib += f", the streaming kernel {r['streaming_ms']:.4f} ms"
@@ -2191,6 +2302,13 @@ def time_kernels(dev, card, gathers, gathers_bf16, enc, drivers):
             if "bound_f32_ms" in r:
                 tested += (f" ({FLASH_BWD_TF32_PASSES} TF32 passes on the tensor cores; at the "
                            f"float32 rate {r['bound_f32_ms']:.5f} ms)")
+            if "bound_design_ms" in r:
+                tested += (" (the bfloat16 pairs on the bfloat16 tensor cores, the float32-operand "
+                           "products in three bfloat16 passes; at the design's units, "
+                           + ("float32 FFMA for both products" if name.startswith("flash_fwd")
+                              else f"one TF32 pass for s and dP and {FLASH_BWD_BF16_TF32_PASSES} "
+                                   "for dQ, dK, dV")
+                           + f", {r['bound_design_ms']:.5f} ms)")
             where = "by CUDA events" if r.get("ms_is_call_ms") else "on the device"
             print(f"time {name} [{r['path']}] {r['shape']}: kernel {r['ms']:.4f} ms {where}, "
                   f"{r['call_ms']:.4f} ms a call back to back, plain "
@@ -2222,11 +2340,13 @@ def time_kernels(dev, card, gathers, gathers_bf16, enc, drivers):
           f"{len(p)} plans {sum(r['ms'] for r in p):.4f} ms on the device (bound "
           f"{sum(r['bound_ms'] for r in p):.5f} ms), {sum(r['call_ms'] for r in p):.4f} ms a call "
           f"back to back, segments (torch.sort) {sum(r['plain_ms'] for r in p):.4f} ms  [{card}]")
-    fwd, bwd = rows["flash_fwd"][0], rows["flash_bwd"][0]  # level 1
-    both = fwd["ms"] + bwd["ms"]
-    print(f"time flash [seg_flash] {fwd['shape']}: forward and backward {both:.4f} ms on the "
-          f"device against F.scaled_dot_product_attention's {bwd['library_ms']:.4f} ms (forward "
-          f"and backward), {'below' if both < bwd['library_ms'] else 'NOT below'} it  [{card}]")
+    for tag in ("", "_bf16"):
+        fwd, bwd = rows["flash_fwd" + tag][0], rows["flash_bwd" + tag][0]  # level 1
+        both = fwd["ms"] + bwd["ms"]
+        print(f"time flash [{fwd['path']}] {fwd['shape']}: forward and backward {both:.4f} ms "
+              f"on the device against F.scaled_dot_product_attention's {bwd['library_ms']:.4f} "
+              f"ms (forward and backward), {'below' if both < bwd['library_ms'] else 'NOT below'}"
+              f" it  [{card}]")
     return rows
 
 
@@ -2281,9 +2401,8 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
           f"(CUDA events); {BATCH * NUM_POINT / fwd * 1e3:.0f} points/s at p50  [{card}]")
 
     batch = seg_batch(500, SEG_B, SEG_N, SEG_SIDE, dev)
-    dense = {"fps": 4, "knn": 11, "knn_spatial": 0, "knn_streaming": 0, "ball_query": 1,
-             "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": SEG_GATHER_BWD,
-             "gather_plan": plan_kernels, "gather_bwd_bf16": 0}
+    dense = {"fps": 4, "knn": 11, "ball_query": 1, "gather_bwd": SEG_GATHER_BWD,
+             "gather_plan": plan_kernels}
     # The dense step and the same step under nl_use_flash, in turns; a flash
     # backward is three CUDA kernels at each seg level (delta, then dQ, dK
     # and dV, then the split dQ's sum), a forward one or two (the kernel,
@@ -2303,9 +2422,7 @@ def time_paths(dev, card, cls_infer, seg_state, seg_step, seg_infer, scene_infer
           f"ms of 10 (CUDA events); {SCENE_N / scene_p50 * 1e3:.0f} points/s at p50; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     profile_window(lambda: scene_infer(scene_x), 2,
-                   {"fps": 4, "knn": 8, "knn_spatial": 3, "knn_streaming": 0, "ball_query": 0,
-                    "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": 0, "gather_plan": 0,
-                    "gather_bwd_bf16": 0}, card,
+                   {"fps": 4, "knn": 8, "knn_spatial": 3}, card,
                    "whole-scene requests", "profile_whole_scene.json")
     return {"cls_forward_ms": fwd, "seg_step_ms": step_p50, "seg_serve_ms": serve_p50,
             "flash_seg_step_ms": flash_p50, "flash_seg_serve_ms": flash_serve_p50,
@@ -2321,14 +2438,20 @@ PROFILE_SYMBOLS = {"fps": ("fps_kernel", FPS_CLUSTER_SYMBOL, FPS_GRID_SYMBOL),
                                  "flash_bwd_dq_sum_kernel"),
                    "gather_bwd": (KERNELS["gather_bwd"]["symbol"],),
                    "gather_plan": KERNELS["gather_plan"]["symbol"],
-                   "gather_bwd_bf16": (KERNELS["gather_bwd_bf16"]["symbol"],)}
+                   "gather_bwd_bf16": (KERNELS["gather_bwd_bf16"]["symbol"],),
+                   # the same names as flash_fwd's and flash_bwd's, of __nv_bfloat16
+                   "flash_fwd_bf16": ("flash_fwd_kernel", "flash_fwd_merge_kernel"),
+                   "flash_bwd_bf16": ("flash_bwd_delta_kernel", "flash_bwd_kernel",
+                                      "flash_bwd_dq_sum_kernel")}
+BF16_NAME = "__nv_bfloat16"  # what a bfloat16 instantiation's name holds
 
 
 def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
     """One torch.profiler window over n calls of fn, after one traced and
     dropped warm-up call: device-busy share and device time by kernel name,
     the ported kernels picked out with the launches recorded (`per_call`
-    launches expected a call). Returns the window's device events."""
+    launches expected a call, 0 where it names none). Returns the window's
+    device events."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traces = []  # the active calls' events, handed over when the cycle ends
@@ -2368,9 +2491,10 @@ def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
 
-    def ours(name):  # no symbol is a part of another
-        return next((k for k, syms in PROFILE_SYMBOLS.items() if any(s in name for s in syms)),
-                    None)
+    def ours(name):  # no symbol is a part of another; the flash kernels' dtype is in the name
+        bf16 = BF16_NAME in name
+        return next((k for k, syms in PROFILE_SYMBOLS.items() if any(s in name for s in syms)
+                     and (not k.startswith("flash") or k.endswith("_bf16") == bf16)), None)
 
     mine = {k: 0.0 for k in PROFILE_SYMBOLS}
     seen = {k: 0 for k in PROFILE_SYMBOLS}
@@ -2379,7 +2503,7 @@ def profile_window(fn, n: int, per_call: dict, card, label: str, out_name: str):
         if k:
             mine[k] += e.time_range.end - e.time_range.start
             seen[k] += 1
-    expected = {k: v * n for k, v in per_call.items()}
+    expected = {k: per_call.get(k, 0) * n for k in PROFILE_SYMBOLS}
     print(f"profile, {label}: launches recorded {seen} of {expected}" +
           ("" if seen == expected else "; the profiler dropped some: shares are lower bounds"))
     print(f"profile, {n} {label}: wall {wall_us / n / 1e3:.3f} ms a call under the profiler; "
@@ -2615,10 +2739,7 @@ def phase_big_scene(dev, card, levels, fps_plain_ms, searches):
           f"({', '.join(f'{t:.3f}' for t in times)} ms, CUDA events); "
           f"{BIG_N / p50 * 1e3:.0f} points/s at p50; peak memory {peak:.2f} GiB  [{card}]")
     events = profile_window(lambda: infer(x), 1, {"fps": 4, "knn": 2, "knn_spatial": 8,
-                                                  "knn_streaming": 1, "ball_query": 0,
-                                                  "flash_fwd": 0, "flash_bwd": 0,
-                                                  "gather_bwd": 0, "gather_plan": 0,
-                                                  "gather_bwd_bf16": 0},
+                                                  "knn_streaming": 1},
                             card, "big-scene requests", "profile_big_scene.json")
 
     # The path's streaming kNN and FPS: device ms from the profiled request
@@ -2966,6 +3087,52 @@ def update_norms(model, before):
             for k, p in model.named_parameters()}
 
 
+def bf16_gate(label: str, model, init, batch):
+    """JAX's bfloat16 gate against the card's own float32 step: from the
+    state `init`, one step of `model` (SGD with momentum at 1e-2, as JAX's
+    gate) in float32, its searches recorded, and one in bfloat16 with those
+    searches replayed: the loss within BF16_LOSS_RTOL relative, the update
+    norms within BF16_D_MAX as one vector. The model is left at the
+    bfloat16 step's state."""
+    from pointasnl_tpu_torch.nn import precision
+    from pointasnl_tpu_torch.train import (
+        TrainState,
+        bn_momentum_schedule,
+        make_optimizer,
+        make_train_step,
+        staircase_lr_schedule,
+    )
+
+    B, N = batch["points"].shape[:2]
+    dev = batch["points"].device
+    runs, tape = {}, SearchTape()
+    for dtype in ("float32", "bfloat16"):
+        model.load_state_dict(init)
+        before = {k: p.detach().double().clone() for k, p in model.named_parameters()}
+        state = TrainState(model, make_optimizer(
+            "momentum", staircase_lr_schedule(1e-2, B, 1e9, 0.7), model.parameters()))
+        step = make_train_step(bn_schedule=bn_momentum_schedule(B, 1e9), task="seg",
+                               uniform_weight=0.01)
+        with (tape.recording() if dtype == "float32" else tape.replaying()), \
+                precision.compute_dtype(dtype):
+            loss = float(step(state, batch, torch.Generator(device=dev).manual_seed(SEED + 11))
+                         ["loss"])
+        runs[dtype] = loss, update_norms(model, before)
+    (l32, n32), (l16, n16) = runs["float32"], runs["bfloat16"]
+    loss_rel = abs(l16 - l32) / abs(l32)
+    d = float(np.sqrt(sum((n16[k] - n32[k]) ** 2 for k in n32) / sum(v ** 2 for v in n32.values())))
+    floor = 1e-2 * max(n32.values())
+    leaf, name = max((abs(n16[k] - a) / max(0.1 * a, floor), k) for k, a in n32.items())
+    print(f"{label}, B{B}x{N} (searches replayed): loss float32 {l32:.6f} bfloat16 "
+          f"{l16:.6f}, {loss_rel:.2e} relative (limit {BF16_LOSS_RTOL}); update norms "
+          f"{d:.4f} apart relative (limit {BF16_D_MAX:.3f}); JAX's per-parameter gate's worst "
+          f"{leaf:.3f} x its limit ({name})")
+    if not loss_rel < BF16_LOSS_RTOL or not d <= BF16_D_MAX:
+        raise RuntimeError(f"{label}: the bfloat16 step fails the bfloat16 gate against the "
+                           f"float32 step")
+    return loss_rel, d
+
+
 def phase_seg_bf16(dev):
     """The seg step in bfloat16: 3 of the recipe's steps at B4 x 10240
     (launches a step those of the float32 step: FPS 4, kNN 11, ball query 1,
@@ -2979,43 +3146,12 @@ def phase_seg_bf16(dev):
     import copy
 
     from pointasnl_tpu_torch.models import PointASNLSemSegRes
-    from pointasnl_tpu_torch.nn import precision
-    from pointasnl_tpu_torch.train import (
-        TrainState,
-        bn_momentum_schedule,
-        make_optimizer,
-        make_train_step,
-        staircase_lr_schedule,
-    )
 
     model = PointASNLSemSegRes(SEG_CLASSES, generator=torch.Generator().manual_seed(SEED + 7),
                                device=dev)
     init = copy.deepcopy(model.state_dict())
     batch = seg_batch(800, SEG_B, SEG_N, SEG_SIDE, dev)
-    runs, tape = {}, SearchTape()
-    for dtype in ("float32", "bfloat16"):
-        model.load_state_dict(init)
-        before = {k: p.detach().double().clone() for k, p in model.named_parameters()}
-        state = TrainState(model, make_optimizer(
-            "momentum", staircase_lr_schedule(1e-2, SEG_B, 1e9, 0.7), model.parameters()))
-        step = make_train_step(bn_schedule=bn_momentum_schedule(SEG_B, 1e9), task="seg",
-                               uniform_weight=0.01)
-        with (tape.recording() if dtype == "float32" else tape.replaying()), \
-                precision.compute_dtype(dtype):
-            loss = float(step(state, batch, torch.Generator(device=dev).manual_seed(SEED + 11))
-                         ["loss"])
-        runs[dtype] = loss, update_norms(model, before)
-    (l32, n32), (l16, n16) = runs["float32"], runs["bfloat16"]
-    loss_rel = abs(l16 - l32) / abs(l32)
-    d = float(np.sqrt(sum((n16[k] - n32[k]) ** 2 for k in n32) / sum(v ** 2 for v in n32.values())))
-    floor = 1e-2 * max(n32.values())
-    leaf, name = max((abs(n16[k] - a) / max(0.1 * a, floor), k) for k, a in n32.items())
-    print(f"seg bf16 gate, B{SEG_B}x{SEG_N} (searches replayed): loss float32 {l32:.6f} bfloat16 "
-          f"{l16:.6f}, {loss_rel:.2e} relative (limit {BF16_LOSS_RTOL}); update norms "
-          f"{d:.4f} apart relative (limit {BF16_D_MAX:.3f}); JAX's per-parameter gate's worst "
-          f"{leaf:.3f} x its limit ({name})")
-    if not loss_rel < BF16_LOSS_RTOL or not d <= BF16_D_MAX:
-        raise RuntimeError("seg bfloat16 step: fails the bfloat16 gate against the float32 step")
+    bf16_gate("seg bf16 gate", model, init, batch)
 
     model.load_state_dict(init)
     state, step = seg_trainer(model, SEG_B)
@@ -3029,7 +3165,8 @@ def phase_seg_bf16(dev):
     print(f"seg train bfloat16, B{SEG_B}x{SEG_N}: losses " + " ".join(f"{v:.4f}" for v in losses) +
           f"; launches a step {launches}")
     want = {"fps": 4, "knn_resident": 11, "ball_query": 1, "knn_spatial": 0, "knn_streaming": 0,
-            "flash_fwd": 0, "flash_bwd": 0, "gather_plan": SEG_GATHER_PLANS}
+            "flash_fwd": 0, "flash_bwd": 0, "flash_fwd_bf16": 0, "flash_bwd_bf16": 0,
+            "gather_plan": SEG_GATHER_PLANS}
     if ({k: launches[k] for k in want} != want or not launches["gather_bwd_bf16"]
             or launches["gather_bwd"] + launches["gather_bwd_bf16"] != SEG_GATHER_BWD
             or not all(np.isfinite(losses))):
@@ -3051,6 +3188,73 @@ def phase_seg_bf16(dev):
                            f"those of B{SEG_B}: {launches}")
     check_dtypes(big, "seg B16 bfloat16 train")
     return state, step, launches, (big, state16, step16, batch16, batch)
+
+
+def phase_seg_bf16_flash(dev):
+    """Slice 15: PointASNLSemSegRes(21, nl_use_flash=True) in bfloat16, as
+    the dense bfloat16 step and the float32 flash step run: SEG_STEPS of the
+    recipe's steps at B4 x 10240, each launching the bfloat16 flash forward
+    and backward once for each of the 4 non-local cells and the float32
+    flash kernels never, beside the bfloat16 step's FPS 4, kNN 11, ball
+    query 1 and 19 gather backwards on 12 plans; SEG_REQUESTS requests
+    through serve.make_inference_fn under the same compute dtype (the
+    bfloat16 forward 4 a request, logits finite); and JAX's bfloat16 gate
+    (bf16_gate) against the card's float32 flash step from one state, its
+    searches replayed. Returns (state, step, infer, launches a step,
+    launches a request), the step and the request run in bfloat16."""
+    import copy
+
+    from pointasnl_tpu_torch.models import PointASNLSemSegRes
+    from pointasnl_tpu_torch.nn import precision
+    from pointasnl_tpu_torch.serve import make_inference_fn
+
+    model = PointASNLSemSegRes(SEG_CLASSES, nl_use_flash=True,
+                               generator=torch.Generator().manual_seed(SEED + 9), device=dev)
+    init = copy.deepcopy(model.state_dict())
+    batch = seg_batch(810, SEG_B, SEG_N, SEG_SIDE, dev)
+    bf16_gate("seg bf16 flash gate", model, init, batch)
+
+    model.load_state_dict(init)
+    state, step = seg_trainer(model, SEG_B)
+    step = in_dtype("bfloat16", step)
+    batches = [seg_batch(820 + s, SEG_B, SEG_N, SEG_SIDE, dev) for s in range(SEG_STEPS)]
+    reset_counts()
+    metrics = [step(state, b) for b in batches]
+    torch.cuda.synchronize()
+    launches = per_step(counts(), SEG_STEPS, "seg bfloat16 flash train")
+    check_dtypes(model, "seg bfloat16 flash train")
+    losses = [float(m["loss"]) for m in metrics]
+    print(f"seg train bfloat16 flash, B{SEG_B}x{SEG_N}: losses " +
+          " ".join(f"{v:.4f}" for v in losses) + f"; launches a step {launches}")
+    want = {**GRID_STEP_LAUNCHES, "flash_fwd_bf16": 4, "flash_bwd_bf16": 4}
+    if (fold_gathers(launches) != fold_gathers(want) or not launches["gather_bwd_bf16"]
+            or not all(np.isfinite(losses))):
+        raise RuntimeError(f"seg bfloat16 flash train: launches a step {launches}, expected "
+                           f"{want} (float32 and bfloat16 gather sums together); losses "
+                           f"{losses}")
+
+    infer = make_inference_fn(model)
+
+    def infer_bf16(x):
+        with precision.compute_dtype("bfloat16"):
+            return infer(x)
+
+    clouds = [cube(830 + r, SEG_B, SEG_N, SEG_SIDE, dev) for r in range(SEG_REQUESTS)]
+    reset_counts()
+    logits = [infer_bf16(x) for x in clouds]
+    torch.cuda.synchronize()
+    serve_launches = per_step(counts(), SEG_REQUESTS, "seg bfloat16 flash serve")
+    print(f"seg serve bfloat16 flash: {SEG_REQUESTS} requests of B{SEG_B}x{SEG_N}; launches a "
+          f"request {serve_launches}")
+    want = {**GRID_FORWARD_LAUNCHES, "flash_fwd_bf16": 4}
+    if serve_launches != want:
+        raise RuntimeError(f"seg bfloat16 flash serve: launches a request {serve_launches}, "
+                           f"expected {want}")
+    for r, out in enumerate(logits):
+        if out.shape != (SEG_B, SEG_N, SEG_CLASSES) or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"seg bfloat16 flash request {r}: logits {tuple(out.shape)} not "
+                               f"all finite")
+    return state, step, infer_bf16, launches, serve_launches
 
 
 def phase_gather_bf16(dev):
@@ -3120,11 +3324,14 @@ def plan_kernels(gathers) -> int:
 
 
 def time_slice11(card, cls, cls_launches, cls_gathers, seg_state, seg_step, seg_launches,
-                 seg_gathers_bf16, seg_extra, seg_f32):
+                 seg_gathers_bf16, seg_extra, seg_f32, seg_bf16_flash, seg_flash):
     """Step times of slice 11 (p50 and p90 by CUDA events, peak memory), in
-    turns with the float32 seg step (`seg_f32`: its state and step), and a
-    profiler window over 3 steps of each of the cls float32 and bfloat16
-    steps and the seg bfloat16 step (device-busy share)."""
+    turns with the float32 seg step (`seg_f32`: its state and step) and, for
+    slice 15, the bfloat16 flash seg step and request (`seg_bf16_flash`, as
+    phase_seg_bf16_flash returns them) and the float32 flash step
+    (`seg_flash`); a profiler window over 3 steps of each of the cls float32
+    and bfloat16 steps, the seg bfloat16 step and the bfloat16 flash step
+    (device-busy share)."""
     model, init, batch, model64, batch64 = cls
     big, state16, step16, batch16, _ = seg_extra
     model.load_state_dict(init)
@@ -3139,6 +3346,12 @@ def time_slice11(card, cls, cls_launches, cls_gathers, seg_state, seg_step, seg_
             (lambda: seg_step(seg_state, seg_extra[4]), SEG_B * SEG_N),
         f"seg train step float32 B{SEG_B}x{SEG_N}":
             (lambda: seg_f32[1](seg_f32[0], seg_extra[4]), SEG_B * SEG_N),
+        f"seg train step bfloat16 flash B{SEG_B}x{SEG_N}":
+            (lambda: seg_bf16_flash[1](seg_bf16_flash[0], seg_extra[4]), SEG_B * SEG_N),
+        f"seg train step float32 flash B{SEG_B}x{SEG_N}":
+            (lambda: seg_flash[1](seg_flash[0], seg_extra[4]), SEG_B * SEG_N),
+        f"seg serve request bfloat16 flash B{SEG_B}x{SEG_N}":
+            (lambda: seg_bf16_flash[2](seg_extra[4]["points"]), SEG_B * SEG_N),
     }
     out = time_steps(card, steps, reps=5)
     out.update(time_steps(card, {
@@ -3161,6 +3374,13 @@ def time_slice11(card, cls, cls_launches, cls_gathers, seg_state, seg_step, seg_
             ("seg bfloat16 train steps", lambda: seg_step(seg_state, seg_extra[4]), seg_launches,
              seg_gathers_bf16, "profile_seg_bf16_step.json")):
         profile_window(fn, 3, expected(launches, gathers), card, label, trace)
+    # The bfloat16 flash step: a forward call is one or two kernels at each
+    # level, a backward two or three (flash_fwd_symbols, flash_bwd_symbols).
+    per_call = {**expected(seg_bf16_flash[3], seg_gathers_bf16),
+                "flash_fwd_bf16": sum(len(flash_fwd_symbols(*shape)) for shape in FLASH_SEG),
+                "flash_bwd_bf16": sum(len(flash_bwd_symbols(*shape)) for shape in FLASH_SEG)}
+    profile_window(lambda: seg_bf16_flash[1](seg_bf16_flash[0], seg_extra[4]), 3, per_call, card,
+                   "seg bfloat16 flash train steps", "profile_seg_bf16_flash_step.json")
     return out
 
 
@@ -3461,6 +3681,51 @@ def phase_encdec_flash(dev, root) -> dict:
     return launches
 
 
+def phase_encdec_flash_bf16(dev, root) -> dict:
+    """Slice 15: one train step of PointASNLSemSeg(21, 3, nl_use_flash=True)
+    at B6 x 8192 in bfloat16 and one request through serve.make_inference_fn
+    in bfloat16: the step launches the bfloat16 flash forward and backward 4
+    times each and the float32 ones never, beside the dense step's searches
+    and its gather backwards (float32 and bfloat16 sums together) on its
+    plans; the request the bfloat16 forward 4 times beside a forward's
+    searches. Loss and logits finite. Returns {"train": launches,
+    "serve": launches}."""
+    from pointasnl_tpu_torch.nn import precision
+    from pointasnl_tpu_torch.serve import make_inference_fn
+
+    model = encdec_model(dev, SEED + 2, flash=True)
+    state, step = seg_trainer(model, ENC_B)
+    batch = scannet_batch(root, ENC_B, ENC_N, 455, dev)
+    reset_counts()
+    metrics = {k: float(v) for k, v in in_dtype("bfloat16", step)(state, batch).items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    check_dtypes(model, "encdec bfloat16 flash step")
+    want = {**ENC_LAUNCHES, "ball_query": 1, "gather_bwd": ENC_GATHER_BWD,
+            "gather_plan": ENC_GATHER_PLANS, "flash_fwd_bf16": 4, "flash_bwd_bf16": 4}
+    print(f"encdec bfloat16 flash step B{ENC_B}x{ENC_N}: launches {launches}; " +
+          ", ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
+    if fold_gathers(launches) != fold_gathers(want) or not launches["gather_bwd_bf16"]:
+        raise RuntimeError(f"encdec bfloat16 flash step launches {launches}, expected {want} "
+                           f"(float32 and bfloat16 gather sums together)")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError("encdec bfloat16 flash step: a loss is not finite")
+    infer = make_inference_fn(model)
+    reset_counts()
+    with precision.compute_dtype("bfloat16"):
+        logits = infer(batch["points"])
+    torch.cuda.synchronize()
+    serve = counts()
+    want = {**ENC_LAUNCHES, "flash_fwd_bf16": 4}
+    print(f"encdec bfloat16 flash request B{ENC_B}x{ENC_N}: launches {serve}; logits "
+          f"{tuple(logits.shape)} {logits.dtype}")
+    if serve != want:
+        raise RuntimeError(f"encdec bfloat16 flash request launches {serve}, expected {want}")
+    if logits.shape != (ENC_B, ENC_N, SEG_CLASSES) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("encdec bfloat16 flash request: logits not all finite")
+    return {"train": launches, "serve": serve}
+
+
 def phase_scannet_clis(dev, root):
     """The ScanNet CLIs on the card, in this process: cli.train_scannet
     --debug at its defaults (B6 x 8192, two epochs of one step, a chopped
@@ -3570,7 +3835,8 @@ def slice12(dev, mark):
     enc = phase_encdec(dev, root)
     phase_encdec_card_vs_cpu(dev, root)
     flash_launches = phase_encdec_flash(dev, root)
-    mark("slice 12 train, serve, card vs CPU, determinism and flash step")
+    flash_bf16 = phase_encdec_flash_bf16(dev, root)
+    mark("slice 12 train, serve, card vs CPU, determinism, flash step, bfloat16 flash step")
     cli_launches, single_pass, cli_errs = phase_scannet_clis(dev, root)
     for name, e in cli_errs.items():
         errs[name] = max(errs.get(name, 0.0), e)
@@ -3579,7 +3845,8 @@ def slice12(dev, mark):
                         .contiguous())
     return {"tmp": tmp, "errs": errs, "state": enc[0], "step": enc[1], "infer": enc[2],
             "launches": enc[3], "serve_launches": enc[4], "gathers": enc[5], "batch": enc[6],
-            "flash_launches": flash_launches, "levels": levels, "cli_launches": cli_launches,
+            "flash_launches": flash_launches, "flash_bf16_launches": flash_bf16,
+            "levels": levels, "cli_launches": cli_launches,
             "single_pass": single_pass}
 
 
@@ -3593,9 +3860,8 @@ def time_encdec(card, enc):
     out = time_steps(card, {
         f"encdec train step B{ENC_B}x{ENC_N}": (lambda: step(state, batch), ENC_B * ENC_N),
         f"encdec serve request B{ENC_B}x{ENC_N}": (lambda: infer(pts), ENC_B * ENC_N)}, reps=5)
-    per_step = {"fps": 4, "knn": 12, "knn_spatial": 0, "knn_streaming": 0, "ball_query": 1,
-                "flash_fwd": 0, "flash_bwd": 0, "gather_bwd": ENC_GATHER_BWD,
-                "gather_plan": plan_kernels(enc["gathers"]), "gather_bwd_bf16": 0}
+    per_step = {"fps": 4, "knn": 12, "ball_query": 1, "gather_bwd": ENC_GATHER_BWD,
+                "gather_plan": plan_kernels(enc["gathers"])}
     profile_window(lambda: step(state, batch), 3, per_step, card, "encdec train steps",
                    "profile_encdec_step.json")
     profile_window(lambda: infer(pts), 3, {**per_step, "ball_query": 0, "gather_bwd": 0,
@@ -3771,23 +4037,35 @@ def driver_probe():
             setattr(m, f, fn)
 
 
+def fold_gathers(launches: dict) -> dict:
+    """Launches with a bfloat16 step's float32 and bfloat16 gather sums
+    counted together (which gathers take which follows the dtypes of their
+    cotangents)."""
+    out = dict(launches)
+    out["gather_bwd"] += out.pop("gather_bwd_bf16")
+    return out
+
+
 def run_driver(label: str, main_fn, argv: list, flash: bool = False, trains: bool = True,
                step_want: dict = GRID_STEP_LAUNCHES, fwd_want: dict = GRID_FORWARD_LAUNCHES,
-               shape: str = f"B{GRID_B}x{GRID_N}"):
+               shape: str = f"B{GRID_B}x{GRID_N}", bf16: bool = False):
     """Run one driver in this process under driver_probe, its launch
     counts set to 0 just before and read just after: a trainer's
     (`trains`) each train step must launch `step_want` (a grid driver's
     by default; with the flash forward and backward 4 each under `flash`), a
     tester takes no step, and the run must launch that and `fwd_want` (the
     flash forward 4 under `flash`) for each forward (predict or eval step),
-    no more. For a trainer
+    no more. Under a bfloat16 compute dtype (`bf16`: the flash kernels are
+    the bfloat16 ones, and a step's gather backwards are counted float32 and
+    bfloat16 sums together, some of them bfloat16). For a trainer
     prints the step times (CUDA events; p50 of the steps after the first)
     and the share of each epoch's train loop spent waiting on the
     Prefetcher. Returns (what the CLI's main returned, the probe's record,
     launches)."""
-    nl = 4 * flash
-    step_want = {**step_want, "flash_fwd": nl, "flash_bwd": nl}
-    fwd_want = {**fwd_want, "flash_fwd": nl}
+    nl, tag = 4 * flash, "_bf16" if bf16 else ""
+    step_want = {**step_want, "flash_fwd" + tag: nl, "flash_bwd" + tag: nl}
+    fwd_want = {**fwd_want, "flash_fwd" + tag: nl}
+    same = fold_gathers if bf16 else dict
     reset_counts()
     t0 = time.perf_counter()
     with driver_probe() as rec:
@@ -3799,8 +4077,9 @@ def run_driver(label: str, main_fn, argv: list, flash: bool = False, trains: boo
     want = {k: len(steps) * step_want[k] + forwards * fwd_want[k] for k in step_want}
     print(f"{label}: {seconds:.1f} s; {len(steps)} train steps, {forwards} forwards; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    bad = [i for i, (_, _, _, got) in enumerate(steps) if got != step_want]
-    if bad or launches != want or bool(steps) != trains or not forwards:
+    bad = [i for i, (_, _, _, got) in enumerate(steps)
+           if same(got) != same(step_want) or (bf16 and not got["gather_bwd_bf16"])]
+    if bad or same(launches) != same(want) or bool(steps) != trains or not forwards:
         raise RuntimeError(f"{label}: launches {launches} (steps {[s[3] for s in steps]}, "
                            f"{forwards} forwards), expected {step_want} a train step and "
                            f"{fwd_want} a forward")
@@ -3819,6 +4098,49 @@ def run_driver(label: str, main_fn, argv: list, flash: bool = False, trains: boo
               f"{wait * 1e3:.1f} ms ({100 * wait / loop:.1f} %) waiting on the Prefetcher "
               f"(capacity {sorted(rec['capacity'])})")
     return result, rec, launches
+
+
+def driver_child(argv: list) -> int:
+    """The subprocess of run_driver_in_child: run the driver that the JSON
+    spec argv[0] names in this process under run_driver (its launches
+    asserted) and write what it returned, its launches and its first train
+    step's searches held to their plain versions (check_tape) to the spec's
+    "out" path. The drivers run in this subprocess are the flash ones under
+    POINTASNL_COMPUTE_DTYPE=bfloat16 (run_driver's flash=True, bf16=True)."""
+    spec = json.loads(argv[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result, rec, launches = run_driver(
+        spec["label"], importlib.import_module(spec["module"]).main, spec["argv"],
+        flash=True, trains=spec["trains"], bf16=True)
+    errs = check_tape(rec["tape"], f"{spec['label']}, its first step")[1] if spec["trains"] else {}
+    Path(spec["out"]).write_text(json.dumps({"result": None if result is None else float(result),
+                                             "launches": launches, "errs": errs}))
+    return 0
+
+
+def run_driver_in_child(label: str, module: str, argv: list, env: dict, out: Path,
+                        trains: bool = True):
+    """Run a driver in a python3 subprocess whose environment adds `env`
+    (POINTASNL_COMPUTE_DTYPE=bfloat16: the JAX package's way to a bfloat16
+    run, read by nn.precision), through driver_child, and wait for it. Its
+    output is printed; a non-zero exit raises. Returns (what the driver
+    returned, launches, max |err| of its first step's searches)."""
+    import os
+
+    spec = {"label": label, "module": module, "argv": argv, "trains": trains, "out": str(out)}
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.driver_child(sys.argv[1:]))"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(spec)],
+                          cwd=Path(__file__).resolve().parent, env={**os.environ, **env},
+                          capture_output=True, text=True, timeout=900)
+    print("\n".join(f"  [child] {line}" for line in proc.stdout.splitlines()))
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: the subprocess exited {proc.returncode}:\n"
+                           f"{proc.stderr[-6000:]}")
+    got = json.loads(out.read_text())
+    print(f"{label}: a subprocess with {env}, {time.perf_counter() - t0:.1f} s")
+    return got["result"], got["launches"], got["errs"]
 
 
 def crop_report(label: str, clouds: dict, crops: list):
@@ -3897,6 +4219,29 @@ def phase_grid_scannet(root: Path) -> dict:
         raise RuntimeError(f"test_scannet_grid: voting mIoU {miou}")
     print(f"cli test_scannet_grid: voting mIoU {miou:.3f} %")
     crops += rec["crops"]
+    # Slice 15: the trainer under --nl_flash true and its tester with
+    # POINTASNL_COMPUTE_DTYPE=bfloat16 in their environment only.
+    bf16 = {"POINTASNL_COMPUTE_DTYPE": "bfloat16"}
+    logs = str(root / "logs_bf16_flash")
+    best, launches["grid_scannet_bf16_flash_train"], e = run_driver_in_child(
+        "cli train_scannet_grid --nl_flash true (bfloat16)",
+        "pointasnl_tpu_torch.cli.train_scannet_grid",
+        recipe + ["--log_dir", logs, "--nl_flash", "true"], bf16, root / "bf16_train.json")
+    if not 0.0 <= best <= 100.0 or not (Path(logs) / "latest" / "state.pt").is_file():
+        raise RuntimeError(f"train_scannet_grid (bfloat16 flash): best voting mIoU {best}, or "
+                           f"no latest checkpoint")
+    for name, v in e.items():
+        errs[name] = max(errs.get(name, 0.0), v)
+    miou, launches["grid_scannet_bf16_flash_test"], _ = run_driver_in_child(
+        "cli test_scannet_grid --split validation --max_rounds 1 (bfloat16 flash)",
+        "pointasnl_tpu_torch.cli.test_scannet_grid",
+        ["--data", str(root), "--model_path", logs, "--ckpt", "latest", "--split",
+         "validation", "--max_rounds", "1", "--dump_dir", str(root / "dump_bf16_flash")], bf16,
+        root / "bf16_test.json", trains=False)
+    if not 0.0 <= miou <= 100.0:
+        raise RuntimeError(f"test_scannet_grid (bfloat16 flash): voting mIoU {miou}")
+    print(f"cli train_scannet_grid --nl_flash true (bfloat16): best voting mIoU {best:.3f} %; "
+          f"test_scannet_grid: voting mIoU {miou:.3f} %")
     clouds = {n: len(read_ply(str(root / "input_0.040" / f"{n}.ply"))) for n in names}
     crop_report("scannet grid", clouds, crops)
 
@@ -4348,6 +4693,8 @@ def main() -> int:
     gathers_bf16 = phase_gather_bf16(dev)
     errs["gather_bwd_bf16"] = 0.0  # equal, or phase_gather_bf16 raised
     mark("slice 11: cls train, bfloat16 steps and the bfloat16 gather backward")
+    seg16f = phase_seg_bf16_flash(dev)
+    mark("slice 15: the bfloat16 flash seg step and requests")
     enc = slice12(dev, mark)
     for name, e in enc["errs"].items():
         errs[name] = max(errs[name], e)
@@ -4372,7 +4719,8 @@ def main() -> int:
         rows[name] += rs
     torch.cuda.empty_cache()
     time_slice11(card, cls, cls_train_launches, cls_gathers, seg16_state, seg16_step,
-                 seg16_launches, gathers_bf16, seg16_extra, (seg_state, seg_step))
+                 seg16_launches, gathers_bf16, seg16_extra, (seg_state, seg_step),
+                 seg16f, (flash_state, flash_step))
     phase_train_loop(dev, seg_infer)
     mark("slice 11: step times and the train loop")
     time_encdec(card, enc)
@@ -4384,9 +4732,11 @@ def main() -> int:
         # one call of a path: the seg train step's, for the spatial kernel
         # (which that step never launches) the whole-scene request's, for
         # the streaming kNN the B1 x 2228224 request's, for the flash
-        # kernels the flash seg train step's.
+        # kernels the flash seg train step's (the bfloat16 ones': in
+        # bfloat16).
         path = {"knn_spatial": "scene", "knn_streaming": "scene_2228224",
                 "flash_fwd": "seg_flash", "flash_bwd": "seg_flash",
+                "flash_fwd_bf16": "seg_flash_bf16", "flash_bwd_bf16": "seg_flash_bf16",
                 "gather_bwd_bf16": "seg_bf16"}.get(name, "seg")
         shapes = [r for r in rows[name] if r["path"] == path]
         top = max(shapes, key=lambda r: r["bound_ms"])
@@ -4398,9 +4748,13 @@ def main() -> int:
                    "cls_train": cls_train_launches["float32"][name] * CLS_LEARN_STEPS,
                    "cls_train_bf16": cls_train_launches["bfloat16"][name] * CLS_LEARN_STEPS,
                    "seg_train_bf16": seg16_launches[name] * SEG_STEPS,
+                   "seg_flash_train_bf16": seg16f[3][name] * SEG_STEPS,
+                   "seg_flash_serve_bf16": seg16f[4][name] * SEG_REQUESTS,
                    "seg_encdec_train": enc["launches"][name],
                    "seg_encdec_serve": enc["serve_launches"][name],
                    "seg_encdec_flash_train": enc["flash_launches"][name],
+                   "seg_encdec_flash_train_bf16": enc["flash_bf16_launches"]["train"][name],
+                   "seg_encdec_flash_serve_bf16": enc["flash_bf16_launches"]["serve"][name],
                    "seg_encdec_sliding_windows": enc["cli_launches"]["sliding windows"][name],
                    "seg_encdec_single_pass": enc["cli_launches"]["single pass"][name],
                    **{path: got[name] for path, got in grid["launches"].items()},
@@ -4412,7 +4766,8 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": errs[name],
             "ms_path": {"seg": "seg_train", "scene": "whole_scene", "seg_flash": "seg_flash_train",
-                        "scene_2228224": "whole_scene_2228224", "seg_bf16": "seg_train_bf16"}[path],
+                        "scene_2228224": "whole_scene_2228224", "seg_bf16": "seg_train_bf16",
+                        "seg_flash_bf16": "seg_flash_train_bf16"}[path],
             "ms": sum(r["ms"] for r in shapes),
             "call_ms": sum(r["call_ms"] for r in shapes),
             "plain_ms": sum(r["plain_ms"] for r in shapes),

@@ -103,8 +103,10 @@ def drop_ignored(confusion, label_values, ignored):
 
 def class_probs(logits: torch.Tensor) -> np.ndarray:
     """Softmax over classes 1.. (class 0 is never predicted), on the host:
-    the grid drivers' per-point probabilities."""
-    return torch.softmax(logits[:, :, 1:], dim=-1).cpu().numpy()
+    the grid drivers' per-point probabilities. The softmax keeps the logits'
+    dtype, as jax.nn.softmax does (bfloat16 under a bfloat16 compute dtype);
+    the host gets its values as float32, numpy having no bfloat16."""
+    return torch.softmax(logits[:, :, 1:], dim=-1).float().cpu().numpy()
 
 
 def pad_seg_batch(batch_data, batch_label, batch_smpw, batch_size):

@@ -141,7 +141,8 @@ def main(argv=None):
         scene_ids = [f"scene{i:04d}" for i in range(len(dataset))]
 
     def logits_of(points: np.ndarray) -> np.ndarray:
-        return predict(state, torch.from_numpy(points).to(dev)).cpu().numpy()
+        # bfloat16 logits (a bfloat16 compute dtype) reach numpy as float32.
+        return predict(state, torch.from_numpy(points).to(dev)).float().cpu().numpy()
 
     tracer = StepTraceWindow(os.path.join(dump_dir, "profile"), enabled=flags.profile, log=log)
     total = SegEvalAccumulator(flags.num_classes)

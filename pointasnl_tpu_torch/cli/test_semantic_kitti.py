@@ -173,7 +173,8 @@ def main(argv=None):
         inv_lut[k] = v
 
     def logits_of(points: np.ndarray) -> np.ndarray:
-        return predict(state, torch.from_numpy(points).to(dev)).cpu().numpy()
+        # bfloat16 logits (a bfloat16 compute dtype) reach numpy as float32.
+        return predict(state, torch.from_numpy(points).to(dev)).float().cpu().numpy()
 
     tracer = StepTraceWindow(os.path.join(flags.dump_dir, "profile"), enabled=flags.profile,
                              log=log)

@@ -78,10 +78,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pasnl_knn_spatial.restype = i
     lib.pasnl_knn_streaming.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pasnl_knn_streaming.restype = i
-    lib.pasnl_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
-    lib.pasnl_flash_fwd.restype = i
-    lib.pasnl_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
-    lib.pasnl_flash_bwd.restype = i
+    for name in ("pasnl_flash_fwd", "pasnl_flash_fwd_bf16"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
+        getattr(lib, name).restype = i
+    for name in ("pasnl_flash_bwd", "pasnl_flash_bwd_bf16"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        getattr(lib, name).restype = i
     for name in ("pasnl_flash_fwd_scratch", "pasnl_flash_bwd_scratch"):
         getattr(lib, name).argtypes = [i, i, i, i, i]
         getattr(lib, name).restype = ctypes.c_longlong

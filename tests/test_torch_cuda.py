@@ -13,7 +13,14 @@ are both float32 with sums in other orders, so o and lse must agree within
 1e-5 of their scale and dq, dk, dv within 1e-4 of theirs, plus 10 times the
 plain version's own distance from float64 dense attention (which the q x 30
 case needs: its scores reach ~1e2, so their float32 rounding moves p by
-~1e-5 relative).
+~1e-5 relative). In bfloat16 (the inputs rounded to it) both round o, delta
+and each 128-query tile's dK and dV where the TPU kernel rounds: o within
+2^-8 and dq, dk, dv within 2^-7 of their scale, plus 10 times the plain
+version's distance from float64 dense attention on the same inputs (with
+one key, dK is bfloat16 rounding noise on both sides), lse as in float32;
+and where the softmax spans more than one key, dk and dv equal to the plain
+version's to the bit on at least 90 % of their elements, which rounding
+them once at the end would not give.
 """
 
 import numpy as np
@@ -1008,6 +1015,111 @@ def test_flash_attention_routes_cuda_tensors_to_the_kernels(dev):
         cuda_flash.flash_forward(torch.zeros(1, 4, 257, device=dev),
                                  torch.zeros(1, 8, 257, device=dev),
                                  torch.zeros(1, 8, 32, device=dev), 1.0)
+
+
+# Each output's share of elements equal to the plain version's to the bit:
+# kernels that round p or dS to bfloat16 before their products, as
+# FlashAttention-2 does, stay within the tolerance but leave o and dq equal
+# on 57-92 % (chip_smoke.py).
+BF16_O_RTOL, BF16_GRAD_RTOL = 2.0 ** -8, 2.0 ** -7
+BF16_BITS_MIN = {"o": 0.99, "dq": 0.97, "dk": 0.90, "dv": 0.90}
+
+
+def _bf16_flash_inputs(case, dev):
+    q, k, v, do, scale = flash_inputs(case, dev)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), do.bfloat16(), scale
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_bf16_flash_kernels_match_plain(dev, case):
+    q, k, v, do, scale = _bf16_flash_inputs(case, dev)
+    o, lse = cuda_flash.flash_forward(q, k, v, scale)
+    dq, dk, dv = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
+    po, plse = tf.flash_forward_reference(q, k, v, scale)
+    pdq, pdk, pdv = tf.flash_backward_reference(q, k, v, po, plse, do, scale)
+    torch.cuda.synchronize()
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert lse.dtype == torch.float32
+    o64, lse64, grads64 = _dense64(q, k, v, do, scale)
+    _flash_close("o", o, po, o64, BF16_O_RTOL)
+    _flash_close("lse", lse, plse, lse64, 1e-5)
+    for name, got, plain, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), (pdq, pdk, pdv), grads64):
+        assert got.shape == plain.shape
+        _flash_close(name, got, plain, ref, BF16_GRAD_RTOL)
+    outs = [("o", o, po)]
+    if k.shape[1] > 1:
+        outs += [("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)]
+    for name, got, plain in outs:
+        share = float((got == plain).float().mean())
+        assert share >= BF16_BITS_MIN[name], f"{name}: {100 * share:.2f} % equal to the bit"
+
+
+@pytest.mark.parametrize("case", ["seg level 1", "seg level 4", "M 77"])
+def test_bf16_flash_kernels_are_deterministic(dev, case):
+    """Two launches give the same bits: dK and dV added tile by tile in
+    order, dQ's splits summed in order."""
+    q, k, v, do, scale = _bf16_flash_inputs(case, dev)
+    first = cuda_flash.flash_forward(q, k, v, scale)
+    again = cuda_flash.flash_forward(q, k, v, scale)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    o, lse = first
+    first = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
+    again = cuda_flash.flash_backward(q, k, v, o, lse, do, scale)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_kernels_refuse_other_dtypes_and_mixes(dev):
+    """float16, float64 and mixed dtypes raise, and launch nothing: no
+    operand is cast to the other dtype's kernel."""
+    q, k, v, do, scale = flash_inputs("M 77", dev)
+    b = [t.bfloat16() for t in (q, k, v, do)]
+    o, lse = cuda_flash.flash_forward(*b[:3], scale)
+    names = ("fwd_launches", "bwd_launches", "fwd_launches_bf16", "bwd_launches_bf16")
+    before = [getattr(cuda_flash, n) for n in names]
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32"):
+            cuda_flash.flash_forward(q.to(dtype), k.to(dtype), v.to(dtype), scale)
+        with pytest.raises(ValueError, match="float32"):
+            tf.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+    for mixed in ((b[0], k, v), (q, b[1], v), (q, k, b[2]), (b[0], b[1], v)):
+        with pytest.raises(ValueError, match="float32"):
+            cuda_flash.flash_forward(*mixed, scale)
+    for bad in ((o.float(), lse, b[3]), (o, lse, do), (o, lse.bfloat16(), b[3])):
+        with pytest.raises(ValueError, match="float32"):
+            cuda_flash.flash_backward(*b[:3], bad[0], bad[1], bad[2], scale)
+    assert [getattr(cuda_flash, n) for n in names] == before
+
+
+def test_bf16_flash_seg_train_step_and_forward_launch_counts(dev):
+    """Under nl_use_flash in bfloat16 a seg train step launches the bfloat16
+    flash forward and backward once for each of the four non-local levels
+    and the float32 ones never; the serve forward the bfloat16 forward 4
+    times."""
+    from pointasnl_tpu_torch.nn import precision
+
+    model = PointASNLSemSegRes(21, nl_use_flash=True, generator=torch.Generator().manual_seed(0),
+                               device=dev)
+    state = TrainState(model, make_optimizer("adam", staircase_lr_schedule(1e-3, 2, 200000, 0.7),
+                                             model.parameters()))
+    step = make_train_step(bn_schedule=bn_momentum_schedule(2, 200000), task="seg",
+                           uniform_weight=0.01)
+    rng = np.random.RandomState(2)
+    batch = {"points": torch.from_numpy((rng.rand(2, 2048, 3) * 0.5).astype(np.float32)).to(dev),
+             "labels": torch.from_numpy(rng.randint(0, 21, (2, 2048))).to(dev),
+             "smpw": torch.ones(2, 2048, device=dev)}
+    names = ("fwd_launches", "bwd_launches", "fwd_launches_bf16", "bwd_launches_bf16")
+    before = [getattr(cuda_flash, n) for n in names]
+    with precision.compute_dtype("bfloat16"):
+        metrics = step(state, batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert [getattr(cuda_flash, n) - b for n, b in zip(names, before)] == [0, 0, 4, 4]
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    before = [getattr(cuda_flash, n) for n in names]
+    with precision.compute_dtype("bfloat16"):
+        logits = make_inference_fn(model)(batch["points"])
+    torch.cuda.synchronize()
+    assert [getattr(cuda_flash, n) - b for n, b in zip(names, before)] == [0, 0, 4, 0]
+    assert logits.shape == (2, 2048, 21) and bool(torch.isfinite(logits).all())
 
 
 def test_flash_seg_train_step_and_forward_launch_counts(dev):

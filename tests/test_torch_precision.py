@@ -8,6 +8,9 @@
   inside, and the outputs, are JAX's: bfloat16 scores divided by a float32
   scale become float32, so the softmax and ``attn @ v`` run in float32 in
   both packages (the port promotes explicitly: ``nn.blockwise.scale_scores``);
+  under ``use_flash`` the non-local cell's flash attention (JAX's Pallas
+  kernels interpreted) returns its bfloat16 inputs' dtype instead, so its
+  projection takes bfloat16 in both;
 - the bfloat16 plain gather backward: float32 ``index_add_`` of the widened
   rows, rounded to bfloat16 once, to the bit; near JAX's one-hot VJP;
 - one seg train step in bfloat16 against JAX's (``seg_gate``, below).
@@ -45,6 +48,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from flax import linen as fnn
+from jax.experimental.pallas import tpu as pltpu
 
 from pointasnl_tpu import ops as jops
 from pointasnl_tpu.nn import layers as jl
@@ -182,6 +186,10 @@ CELLS = {
                        [(2, 6, 8, 5), (2, 6, 8, 3)]),
     "nonlocal": (lambda: jp.PointNonLocalCell(bottleneck=32, out_channels=16),
                  lambda: tp.PointNonLocalCell(6, 9, 32, 16), [(2, 40, 6), (2, 12, 9)]),
+    "nonlocal_flash": (lambda: jp.PointNonLocalCell(bottleneck=32, out_channels=16,
+                                                    use_flash=True),
+                       lambda: tp.PointNonLocalCell(6, 9, 32, 16, use_flash=True),
+                       [(2, 40, 6), (2, 12, 9)]),
     "set_abstraction": (lambda: jp.PointASNLSetAbstraction(npoint=32, nsample=8, mlp=(16, 16, 32),
                                                            as_neighbor=4),
                         lambda: tp.PointASNLSetAbstraction(3, 32, 8, (16, 16, 32), as_neighbor=4),
@@ -202,14 +210,19 @@ def test_cell_dtypes_match_jax_in_bf16(cell):
                                                            training=False))(*jargs), 0)
     tmodule.load_state_dict(flax_to_state_dict(variables), strict=True)
     tmodule.train()
-    with precision.compute_dtype("bfloat16"), jprec.compute_dtype("bfloat16"):
+    # JAX's flash cell reaches its Pallas kernels: interpreted on the CPU.
+    with precision.compute_dtype("bfloat16"), jprec.compute_dtype("bfloat16"), \
+            pltpu.force_tpu_interpret_mode():
         jout, jseen = _jax_dense_dtypes(jmodule, jargs, variables)
         tout, tseen = _port_dense_dtypes(tmodule, [torch.from_numpy(a) for a in args])
     assert tseen == jseen and len(tseen) >= 3
-    # The trap: the product after a softmax of promoted scores is float32.
-    promoted = {"sample_weights": "mlp2_0", "nonlocal": "conv_back_project",
-                "set_abstraction": "nonlocal.conv_back_project"}[cell]
-    assert tseen[promoted] == ("float32", "bfloat16")
+    # The trap: the product after a softmax of promoted scores is float32;
+    # the flash kernels return their bfloat16 inputs' dtype instead.
+    promoted, dtype_in = {"sample_weights": ("mlp2_0", "float32"),
+                          "nonlocal": ("conv_back_project", "float32"),
+                          "nonlocal_flash": ("conv_back_project", "bfloat16"),
+                          "set_abstraction": ("nonlocal.conv_back_project", "float32")}[cell]
+    assert tseen[promoted] == (dtype_in, "bfloat16")
     jouts, touts = ((jout,), (tout,)) if cell != "set_abstraction" else (jout, tout)
     for t, j in zip(touts, jouts):
         assert str(t.dtype)[6:] == str(j.dtype)
@@ -374,11 +387,12 @@ def check_gate(runs):
     return jax_d, d
 
 
-def seg_gate_runs():
+def seg_gate_runs(**model_kw):
     """The seg step (PointASNLSemSegRes(21), dropout off, uniform weight
-    0.01) at B2 x 2048 in a 0.2 m cube in four runs: the port's float32
-    step (its searches recorded), and with those searches replayed, the
-    port's bfloat16 step and JAX's float32 and bfloat16 steps."""
+    0.01, and `model_kw` such as nl_use_flash in both packages) at B2 x 2048
+    in a 0.2 m cube in four runs: the port's float32 step (its searches
+    recorded), and with those searches replayed, the port's bfloat16 step
+    and JAX's float32 and bfloat16 steps."""
     from pointasnl_tpu.models import PointASNLSemSegRes as JaxSegRes
     from pointasnl_tpu_torch.models import PointASNLSemSegRes
     from test_torch_seg import flax_variables
@@ -393,12 +407,12 @@ def seg_gate_runs():
     tape = GeometryTape()
     runs = {}
     for name, dtype in (("port_f32", "float32"), ("port_bf16", "bfloat16")):
-        model = PointASNLSemSegRes(21, dropout_keep=1.0, device="cpu")
+        model = PointASNLSemSegRes(21, dropout_keep=1.0, device="cpu", **model_kw)
         model.load_state_dict(sd)
         runs[name] = port_gate_step(
             model, {k: torch.from_numpy(v) for k, v in batch.items()}, dtype, "seg",
             tape_mode="record" if name == "port_f32" else "replay", tape=tape, uniform_weight=0.01)
-    jmodel = JaxSegRes(num_class=21, dropout_keep=1.0)
+    jmodel = JaxSegRes(num_class=21, dropout_keep=1.0, **model_kw)
     variables = flax_variables(jmodel, batch["points"], sd)
     for name, dtype in (("jax_f32", "float32"), ("jax_bf16", "bfloat16")):
         runs[name] = jax_gate_step(jmodel, variables, batch, dtype, "seg", tape=tape,

@@ -131,10 +131,13 @@ def test_kernel_build_is_keyed_on_sources_and_raises_without_nvcc(monkeypatch):
     from pointasnl_tpu_torch.ops.cuda import _build
 
     sources = _build._sources()
-    assert [p.name for p in sources] == ["ball_query.cu", "flash_attention.cu", "fps.cu",
+    assert [p.name for p in sources] == ["ball_query.cu", "flash_attention.cu",
+                                         "flash_attention_bf16.cu", "fps.cu",
                                          "gather_backward.cu", "knn.cu", "knn_spatial.cu",
                                          "knn_streaming.cu"]
-    assert [p.name for p in _build._inputs()] == ["ball_query.cu", "flash_attention.cu", "fps.cu",
+    assert [p.name for p in _build._inputs()] == ["ball_query.cu", "flash_attention.cu",
+                                                  "flash_attention.cuh",
+                                                  "flash_attention_bf16.cu", "fps.cu",
                                                   "gather_backward.cu", "knn.cu",
                                                   "knn_select.cuh", "knn_spatial.cu",
                                                   "knn_streaming.cu"]
